@@ -1,5 +1,5 @@
 """Experiment entry point — mirror of the reference demo
-(/root/reference/demo_wholebody_qref.py) on the TPU-native stack.
+(/root/reference/demo_wholebody_qref.py) on the JAX stack.
 
 Usage:
     python demo_wholebody_qref.py [scenario] [--physical-sim] [--plots DIR]

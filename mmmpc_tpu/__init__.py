@@ -1,4 +1,4 @@
-"""mmmpc_tpu — TPU-native whole-body MPC framework for a mobile manipulator.
+"""mmmpc_tpu — batched whole-body MPC framework for a mobile manipulator.
 
 A from-scratch re-design of the capabilities of HsinyuG/mobile-manipulator-mpc
 (CasADi/IPOPT/PyBullet, see /root/reference) as an idiomatic JAX/XLA/Pallas
@@ -22,7 +22,7 @@ framework:
                   ``physical_sim=False`` path), batched.
 - ``parallel``    mesh construction, shard_map'd batched solves, collective
                   metric reductions (solves/s, constraint-violation maxima).
-- ``ops``         Pallas TPU kernels for the hot paths.
+- ``ops``         fused Pallas kernels (Triton route) for the GPU hot path.
 - ``utils``       angle math, safe norms, config dataclasses, DH codegen
                   verification.
 """

@@ -112,8 +112,7 @@ class MPCBase(ControllerBase):
         # yaw error has unit slope a.e.), the slack group contributes one
         # rank-1 outer product from a single reverse-mode pass, and the box
         # rows are pure diagonal updates.  Mirrors the flagship qref
-        # expansion (wholebody_qref.py) — measured ~9x the residual-Jacobian
-        # GN path on v5e at batch 1024.
+        # expansion (wholebody_qref.py).
         import jax as _jax
 
         _box_idx = jnp.asarray([0, 1, 3, 4, 5])
@@ -158,188 +157,6 @@ class MPCBase(ControllerBase):
             from mmmpc_tpu.models.base import base_jacobians
             return base_jacobians(x, u, dt)
 
-        n_obs = int(self.obstacles_value.shape[0])
-        ulim_np = self.ulim
-
-        def lanes_fwd_factory(cfg):
-            from mmmpc_tpu.ops import generic_fwd as gf
-            xlo = [float(v) for v in self.xlim[0]]   # 5-wide (x,y,dx,dy,dpsi)
-            xhi = [float(v) for v in self.xlim[1]]
-
-            def dyn(x, u):
-                c, s = jnp.cos(x[2]), jnp.sin(x[2])
-                return [x[0] + dt * x[3],
-                        x[1] + dt * x[4],
-                        x[2] + dt * x[5],
-                        x[3] + dt * (u[0] * c - x[4] * x[5]),
-                        x[4] + dt * (u[0] * s + x[3] * x[5]),
-                        x[5] + dt * u[1]]
-
-            def state_err(x, sm, row):
-                return [x[0] - sm["X_ref"][row, 0],
-                        x[1] - sm["X_ref"][row, 1],
-                        gf.wrap_pi_t(x[2] - sm["X_ref"][row, 2]),
-                        x[3] - sm["X_ref"][row, 3],
-                        x[4] - sm["X_ref"][row, 4],
-                        x[5] - sm["X_ref"][row, 5]]
-
-            def slack_pen(x, sm):
-                if n_obs == 0:
-                    return 0.0
-                gs = gf.ground_circles_t(x[0], x[1], sm["obstacles"], n_obs,
-                                         base_radius)
-                smax = gf.relu_max_t(gs)
-                return sm["M"][0, 0] * smax * smax
-
-            def box6(x):
-                v = [x[0], x[1], x[3], x[4], x[5]]
-                return ([v[i] - xhi[i] for i in range(5)]
-                        + [xlo[i] - v[i] for i in range(5)])
-
-            def stage(x, u, sm, g):
-                e = state_err(x, sm, g)
-                eu = [u[0] - sm["U_ref"][g, 0], u[1] - sm["U_ref"][g, 1]]
-                raw = (gf.qform_t(sm["Q"], e) + gf.qform_t(sm["R"], eu)
-                       + slack_pen(x, sm))
-                return raw, box6(x)
-
-            def terminal(x, sm):
-                e = state_err(x, sm, N)
-                raw = gf.qform_t(sm["P"], e) + slack_pen(x, sm)
-                return raw, box6(x), []
-
-            def pack(p):
-                out = {k: p[k] for k in ("Q", "R", "P", "M", "X_ref",
-                                         "U_ref")}
-                out["obstacles"] = (p["obstacles"] if n_obs
-                                    else jnp.zeros((1, 3)))
-                return out
-
-            hooks = gf.LanesHooks(
-                nc=10, nct=10, ne=0,
-                smem_shapes={"Q": (6, 6), "R": (2, 2), "P": (6, 6),
-                             "M": (1, 1), "X_ref": (N + 1, 6),
-                             "U_ref": (N, 2),
-                             "obstacles": (max(n_obs, 1), 3)},
-                pack=pack, dyn=dyn, stage=stage, terminal=terminal)
-            alphas = [cfg.alpha_decay ** i for i in range(cfg.n_alpha)]
-            return gf.make_generic_fwd_linesearch(
-                nx=6, nu=2, N=N, u_clamp=(ulim_np[0], ulim_np[1]),
-                alphas=alphas, inv_scale=1.0 / cfg.cost_scale, hooks=hooks)
-
-        def lanes_bwd_factory(cfg):
-            from mmmpc_tpu.ops import generic_bwd as gb
-            from mmmpc_tpu.ops import generic_fwd as gf
-            from mmmpc_tpu.ops.wholebody_bwd import (
-                _mul, _relu_max_grad,
-            )
-            two_s = 2.0 / cfg.cost_scale
-            dt_f = float(dt)
-            xlo = [float(v) for v in self.xlim[0]]
-            xhi = [float(v) for v in self.xlim[1]]
-            # state indices covered by the 5-wide box (yaw unbounded)
-            BOX = (0, 1, 3, 4, 5)
-
-            def ground_slack(x, sm):
-                """(smax, [sx0, sx1, 0, 0, 0, 0]) of relu(max ground-circle
-                g), tie-splitting matching _slack_vg's jnp.max VJP."""
-                if n_obs == 0:
-                    return 0.0, [0.0] * 6
-                vals, grads = [], []
-                for o in range(n_obs):
-                    dx = x[0] - sm["obstacles"][o, 0]
-                    dy = x[1] - sm["obstacles"][o, 1]
-                    d = jnp.sqrt(dx * dx + dy * dy + 1e-9)
-                    vals.append((sm["obstacles"][o, 2] + base_radius) - d)
-                    inv = -1.0 / d
-                    grads.append([dx * inv, dy * inv, 0.0, 0.0, 0.0, 0.0])
-                return _relu_max_grad(vals, grads, 6)
-
-            def tracking(x, sm, row, Wt):
-                e = [x[0] - sm["X_ref"][row, 0],
-                     x[1] - sm["X_ref"][row, 1],
-                     gf.wrap_pi_t(x[2] - sm["X_ref"][row, 2]),
-                     x[3] - sm["X_ref"][row, 3],
-                     x[4] - sm["X_ref"][row, 4],
-                     x[5] - sm["X_ref"][row, 5]]
-                smax, sx = ground_slack(x, sm)
-                M = sm["M"][0, 0]
-                Msm = M * smax
-                We = [None] * 6
-                for i in range(6):
-                    acc = None
-                    for j in range(6):
-                        t = Wt[i, j] * e[j]
-                        acc = t if acc is None else acc + t
-                    We[i] = acc
-                gx = [_mul(two_s, We[i] + _mul(Msm, sx[i]))
-                      for i in range(6)]
-                Hxx = [[_mul(two_s, Wt[i, j]
-                             + _mul(M, _mul(sx[i], sx[j])))
-                        for j in range(6)] for i in range(6)]
-                return gx, Hxx
-
-            def box_rows(x):
-                rows = []
-                for r, i in enumerate(BOX):
-                    g = [0.0] * 6
-                    g[i] = 1.0
-                    rows.append((x[i] - xhi[r], g))
-                for r, i in enumerate(BOX):
-                    g = [0.0] * 6
-                    g[i] = -1.0
-                    rows.append((xlo[r] - x[i], g))
-                return rows
-
-            def stage_quad(x, u, sm, k):
-                lx, lxx = tracking(x, sm, k, sm["Q"])
-                eu = [u[0] - sm["U_ref"][k, 0], u[1] - sm["U_ref"][k, 1]]
-                lu = [_mul(two_s, sm["R"][i, 0] * eu[0]
-                           + sm["R"][i, 1] * eu[1]) for i in range(2)]
-                luu = [[two_s * sm["R"][i, j] for j in range(2)]
-                       for i in range(2)]
-                lux = [[0.0] * 6 for _ in range(2)]
-                cons = [(v, g, [0.0, 0.0]) for v, g in box_rows(x)]
-                return lx, lu, lxx, luu, lux, cons
-
-            def term_quad(x, sm):
-                gx, Hxx = tracking(x, sm, N, sm["P"])
-                return gx, Hxx, box_rows(x), []
-
-            def dyn_jac(x, u, sm, k):
-                c2, s2 = jnp.cos(x[2]), jnp.sin(x[2])
-                A = [[1.0 if i == j else 0.0 for j in range(6)]
-                     for i in range(6)]
-                A[0][3] = A[1][4] = A[2][5] = dt_f
-                A[3][2] = -dt_f * (u[0] * s2)
-                A[3][4] = -dt_f * x[5]
-                A[3][5] = -dt_f * x[4]
-                A[4][2] = dt_f * (u[0] * c2)
-                A[4][3] = dt_f * x[5]
-                A[4][5] = dt_f * x[3]
-                Bm = [[0.0, 0.0] for _ in range(6)]
-                Bm[3][0] = dt_f * c2
-                Bm[4][0] = dt_f * s2
-                Bm[5][1] = dt_f
-                return A, Bm
-
-            def pack(p):
-                out = {k: p[k] for k in ("Q", "R", "P", "M", "X_ref",
-                                         "U_ref")}
-                out["obstacles"] = (p["obstacles"] if n_obs
-                                    else jnp.zeros((1, 3)))
-                return out
-
-            hooks = gb.BwdHooks(
-                nc=10, nct=10, ne=0,
-                smem_shapes={"Q": (6, 6), "R": (2, 2), "P": (6, 6),
-                             "M": (1, 1), "X_ref": (N + 1, 6),
-                             "U_ref": (N, 2),
-                             "obstacles": (max(n_obs, 1), 3)},
-                pack=pack, dyn_jac=dyn_jac,
-                stage_quad=stage_quad, term_quad=term_quad)
-            return gb.make_generic_bwd_fused(nx=6, nu=2, N=N, hooks=hooks)
-
         ocp = OCP(nx=self.NX, nu=self.NU, N=N, dynamics=dynamics,
                   stage_cost=stage_cost, terminal_cost=terminal_cost,
                   stage_ineq=stage_ineq, terminal_ineq=terminal_ineq,
@@ -349,9 +166,7 @@ class MPCBase(ControllerBase):
                   terminal_residuals=terminal_residuals,
                   dynamics_jacobians=dynamics_jacobians,
                   stage_al_expansion=stage_al_expansion,
-                  terminal_al_expansion=terminal_al_expansion,
-                  lanes_fwd_factory=lanes_fwd_factory,
-                  lanes_bwd_factory=lanes_bwd_factory)
+                  terminal_al_expansion=terminal_al_expansion)
         super().__init__(ocp, solver_config or SolverConfig())
         self.reset()
 

@@ -2,7 +2,7 @@
 
 Every controller follows the reference's 3-method protocol
 (__init__ / reset / solve, SURVEY.md §1 L3) but compiles its OCP once and
-re-solves with runtime parameters — the TPU analogue of the reference's
+re-solves with runtime parameters — the analogue of the reference's
 ``opti.parameter`` mechanism that lets one built problem serve every control
 tick and task phase without recompilation.
 """
@@ -99,8 +99,8 @@ class ControllerBase:
     def batch_solve_fn(self):
         """(x0_b, U0_b, params) -> batched SolveResult.
 
-        Uses the natively-batched solver (Pallas Riccati kernel on TPU when
-        the batch is a multiple of 1024; vmap fallback otherwise)."""
+        Uses the natively-batched solver (fused kernels on the GPU where
+        the OCP provides them; vmap otherwise)."""
         from mmmpc_tpu.solver.batched import al_ilqr_solve_batched
         ocp, cfg = self.ocp, self.solver_config
         return lambda x0_b, U0_b, params: al_ilqr_solve_batched(

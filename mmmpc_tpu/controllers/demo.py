@@ -76,72 +76,6 @@ class MPC(ControllerBase):
             B = jnp.asarray([[0.0], [dt]], x.dtype)
             return A, B
 
-        def lanes_fwd_factory(cfg):
-            from mmmpc_tpu.ops import generic_fwd as gf
-            vlo, vhi = float(vlim[0]), float(vlim[1])
-
-            def stage(x, u, sm, g):
-                ex = [x[0] - sm["X_ref"][g, 0], x[1] - sm["X_ref"][g, 1]]
-                eu = [u[0] - sm["U_ref"][g, 0]]
-                raw = gf.qform_t(sm["Q"], ex) + gf.qform_t(sm["R"], eu)
-                return raw, [x[1] - vhi, vlo - x[1]]
-
-            def terminal(x, sm):
-                ex = [x[0] - sm["X_ref"][N, 0], x[1] - sm["X_ref"][N, 1]]
-                return gf.qform_t(sm["P"], ex), [], []
-
-            hooks = gf.LanesHooks(
-                nc=2, nct=0, ne=0,
-                smem_shapes={"Q": (2, 2), "R": (1, 1), "P": (2, 2),
-                             "X_ref": (N + 1, 2), "U_ref": (N, 1)},
-                pack=lambda p: {k: p[k]
-                                for k in ("Q", "R", "P", "X_ref", "U_ref")},
-                dyn=lambda x, u: [x[0] + dt * x[1], x[1] + dt * u[0]],
-                stage=stage, terminal=terminal)
-            alphas = [cfg.alpha_decay ** i for i in range(cfg.n_alpha)]
-            return gf.make_generic_fwd_linesearch(
-                nx=2, nu=1, N=N, u_clamp=([float(alim[0])], [float(alim[1])]),
-                alphas=alphas, inv_scale=1.0 / cfg.cost_scale, hooks=hooks)
-
-        def lanes_bwd_factory(cfg):
-            from mmmpc_tpu.ops import generic_bwd as gb
-            two_s = 2.0 / cfg.cost_scale
-            dt_f = float(dt)
-            vlo, vhi = float(vlim[0]), float(vlim[1])
-
-            def stage_quad(x, u, sm, k):
-                ex = [x[0] - sm["X_ref"][k, 0], x[1] - sm["X_ref"][k, 1]]
-                eu0 = u[0] - sm["U_ref"][k, 0]
-                lx = [two_s * (sm["Q"][i, 0] * ex[0] + sm["Q"][i, 1] * ex[1])
-                      for i in range(2)]
-                lu = [two_s * (sm["R"][0, 0] * eu0)]
-                lxx = [[two_s * sm["Q"][i, j] for j in range(2)]
-                       for i in range(2)]
-                luu = [[two_s * sm["R"][0, 0]]]
-                lux = [[0.0, 0.0]]
-                cons = [(x[1] - vhi, [0.0, 1.0], [0.0]),
-                        (vlo - x[1], [0.0, -1.0], [0.0])]
-                return lx, lu, lxx, luu, lux, cons
-
-            def term_quad(x, sm):
-                ex = [x[0] - sm["X_ref"][N, 0], x[1] - sm["X_ref"][N, 1]]
-                gx = [two_s * (sm["P"][i, 0] * ex[0] + sm["P"][i, 1] * ex[1])
-                      for i in range(2)]
-                Hxx = [[two_s * sm["P"][i, j] for j in range(2)]
-                       for i in range(2)]
-                return gx, Hxx, [], []
-
-            hooks = gb.BwdHooks(
-                nc=2, nct=0, ne=0,
-                smem_shapes={"Q": (2, 2), "R": (1, 1), "P": (2, 2),
-                             "X_ref": (N + 1, 2), "U_ref": (N, 1)},
-                pack=lambda p: {k: p[k]
-                                for k in ("Q", "R", "P", "X_ref", "U_ref")},
-                dyn_jac=lambda x, u, sm, k: ([[1.0, dt_f], [0.0, 1.0]],
-                                             [[0.0], [dt_f]]),
-                stage_quad=stage_quad, term_quad=term_quad)
-            return gb.make_generic_bwd_fused(nx=2, nu=1, N=N, hooks=hooks)
-
         ocp = OCP(nx=self.NX, nu=self.NU, N=N,
                   dynamics=lambda x, u: point_mass_step(x, u, dt),
                   stage_cost=stage_cost, terminal_cost=terminal_cost,
@@ -152,9 +86,7 @@ class MPC(ControllerBase):
                   terminal_residuals=terminal_residuals,
                   dynamics_jacobians=dynamics_jacobians,
                   stage_al_expansion=stage_al_expansion,
-                  terminal_al_expansion=terminal_al_expansion,
-                  lanes_fwd_factory=lanes_fwd_factory,
-                  lanes_bwd_factory=lanes_bwd_factory)
+                  terminal_al_expansion=terminal_al_expansion)
         super().__init__(ocp, solver_config or SolverConfig())
         self.reset()
 

@@ -228,300 +228,6 @@ class MPCManipulator3DoF(ControllerBase):
             eye = jnp.eye(3, dtype=q.dtype)
             return eye, jnp.asarray(dt, q.dtype) * eye
 
-        n_hp_static = int(self.hp_mask_value.shape[0])
-        dqlim_np = self.dqlim
-
-        def lanes_fwd_factory(cfg):
-            from mmmpc_tpu.ops import generic_fwd as gf
-            from mmmpc_tpu.ocp.constraints import SELF_COLLISION_RADIUS
-            qlo_f = [float(v) for v in self.qlim[0]]
-            qhi_f = [float(v) for v in self.qlim[1]]
-            ddlo_f = [float(v) for v in self.ddqlim[0]]
-            ddhi_f = [float(v) for v in self.ddqlim[1]]
-
-            def slack_pen(fk, sm):
-                ee, j2, j3 = fk
-                pts = gf.sample_points_t(ee, j2, j3)
-                gs = gf.halfplane_union_t(pts, sm["hp_points"],
-                                          sm["hp_normals"], sm["hp_mask"],
-                                          n_hp_static)
-                smax = gf.relu_max_t(gs)
-                return SLACK_WEIGHT * smax * smax
-
-            def state_err(x, fk, sm, row):
-                if cartesian:
-                    ee = fk[0]
-                    return [ee[c] - sm["X_ref"][row, c] for c in range(3)]
-                return [x[i] - sm["X_ref"][row, i] for i in range(3)]
-
-            def qbox(x):
-                return ([x[i] - qhi_f[i] for i in range(3)]
-                        + [qlo_f[i] - x[i] for i in range(3)])
-
-            dt_fwd = float(dt)
-
-            def stage(x, u, sm, g, carry):
-                fk = gf.arm_fk_from_trig_t(carry)
-                e = state_err(x, fk, sm, g)
-                eu = [u[i] - sm["U_ref"][g, i] for i in range(3)]
-                edu = [u[i] - sm["U_last"][g, i] for i in range(3)]
-                raw = (gf.qform_t(sm["Q"], e) + gf.qform_t(sm["R"], eu)
-                       + gf.qform_t(sm["M"], edu) + slack_pen(fk, sm))
-                gdd = ([edu[i] - ddhi_f[i] for i in range(3)]
-                       + [ddlo_f[i] - edu[i] for i in range(3)])
-                sc = gf.self_collision_t(*fk, SELF_COLLISION_RADIUS)
-                return raw, qbox(x) + gdd + sc
-
-            def terminal(x, sm, carry):
-                fk = gf.arm_fk_from_trig_t(carry)
-                e = state_err(x, fk, sm, N)
-                raw = gf.qform_t(sm["P"], e) + slack_pen(fk, sm)
-                sc = gf.self_collision_t(*fk, SELF_COLLISION_RADIUS)
-                return raw, qbox(x) + sc, []
-
-            nref = 3
-            hooks = gf.LanesHooks(
-                nc=16, nct=10, ne=0,
-                smem_shapes={"Q": (3, 3), "R": (3, 3), "P": (3, 3),
-                             "M": (3, 3), "X_ref": (N + 1, nref),
-                             "U_ref": (N, 3), "U_last": (N, 3),
-                             "hp_points": (n_hp_static, 3),
-                             "hp_normals": (n_hp_static, 3),
-                             "hp_mask": (n_hp_static, 1)},
-                pack=lambda p: {k: p[k] for k in (
-                    "Q", "R", "P", "M", "X_ref", "U_ref", "U_last",
-                    "hp_points", "hp_normals", "hp_mask")},
-                dyn=lambda x, u, carry: [x[i] + dt * u[i] for i in range(3)],
-                stage=stage, terminal=terminal,
-                # incremental trig: 6 sin/cos once per rollout, rotations
-                # by the dt-scaled clamped joint rates per stage
-                n_carry=6,
-                carry_init=lambda x, sm: gf.arm_trig_t(x[0], x[1], x[2]),
-                carry_step=lambda c, x, u, sm: gf.arm_trig_advance_t(
-                    c, dt_fwd * u[0], dt_fwd * u[1], dt_fwd * u[2]))
-            alphas = [cfg.alpha_decay ** i for i in range(cfg.n_alpha)]
-            return gf.make_generic_fwd_linesearch(
-                nx=3, nu=3, N=N, u_clamp=(dqlim_np[0], dqlim_np[1]),
-                alphas=alphas, inv_scale=1.0 / cfg.cost_scale, hooks=hooks)
-
-        def lanes_bwd_factory(cfg):
-            from mmmpc_tpu.ops import generic_bwd as gb
-            from mmmpc_tpu.ops.generic_fwd import (
-                arm_trig_advance_t, arm_trig_t,
-            )
-            from mmmpc_tpu.ops.wholebody_bwd import (
-                _add, _dot, _mul, _relu_max_grad,
-            )
-            from mmmpc_tpu.models.arm import A2, A3, A5, A6, A7
-            from mmmpc_tpu.ocp.constraints import SELF_COLLISION_RADIUS
-            two_s = 2.0 / cfg.cost_scale
-            dt_f = float(dt)
-            qlo_f = [float(v) for v in self.qlim[0]]
-            qhi_f = [float(v) for v in self.qlim[1]]
-            ddlo_f = [float(v) for v in self.ddqlim[0]]
-            ddhi_f = [float(v) for v in self.ddqlim[1]]
-            # sample-point / self-collision combination coefficients over
-            # (j2, j3, ee) — ocp/constraints.manipulator_sample_points and
-            # self_collision_g's check list (reference :83-89,216-222)
-            HP_PTS = ((0.5, 0.0, 0.0), (1.0, 0.0, 0.0), (0.5, 0.5, 0.0),
-                      (0.0, 1.0, 0.0), (0.0, 0.5, 0.5), (0.0, 0.0, 1.0))
-            SELF_CHK = ((0.0, 0.0, 0.0), (0.5, 0.0, 0.0), (1.0, 0.0, 0.0),
-                        (0.5, 0.5, 0.0))
-
-            def arm_partials(q, tr):
-                """Arm-frame FK coords + x/z q-partial tables (the arm-frame
-                subset of ops/wholebody_bwd._fk_partials) from the
-                incremental-trig sweep carry ``tr``."""
-                s1, c1, st, ct, sb, cb = tr
-                ax2 = A2 * s1 + A3 * c1
-                az2 = A2 * c1 - A3 * s1
-                D3 = A3 * st + A5 * ct
-                E3 = A3 * ct - A5 * st
-                ax3 = ax2 - A3 * ct + A5 * st
-                az3 = az2 + A3 * st + A5 * ct
-                P6 = -A6 * sb - A7 * cb
-                Q6 = -A6 * cb + A7 * sb
-                axe = ax3 + A6 * cb - A7 * sb
-                aze = az3 - A6 * sb - A7 * cb
-                return dict(
-                    x=(ax2, ax3, axe), z=(az2, az3, aze),
-                    x_q=([az2, 0.0, 0.0], [az2 + D3, -D3, 0.0],
-                         [az2 + D3 + P6, -(D3 + P6), -P6]),
-                    z_q=([-ax2, 0.0, 0.0], [-ax2 + E3, -E3, 0.0],
-                         [-ax2 + E3 + Q6, -(E3 + Q6), -Q6]))
-
-            def combo(fk, al):
-                """Point (x, z) and its q-partials for (j2, j3, ee) coeffs."""
-                px = _add(_add(_mul(al[0], fk["x"][0]),
-                               _mul(al[1], fk["x"][1])),
-                          _mul(al[2], fk["x"][2]))
-                pz = _add(_add(_mul(al[0], fk["z"][0]),
-                               _mul(al[1], fk["z"][1])),
-                          _mul(al[2], fk["z"][2]))
-                AX = [_add(_add(_mul(al[0], fk["x_q"][0][i]),
-                                _mul(al[1], fk["x_q"][1][i])),
-                           _mul(al[2], fk["x_q"][2][i])) for i in range(3)]
-                AZ = [_add(_add(_mul(al[0], fk["z_q"][0][i]),
-                                _mul(al[1], fk["z_q"][1][i])),
-                           _mul(al[2], fk["z_q"][2][i])) for i in range(3)]
-                return px, pz, AX, AZ
-
-            def wedge_slack(fk, sm):
-                """(smax, sq) of relu(max over sample points of the
-                half-plane union), tie-splitting matching _slack_vg's AD."""
-                if not self.has_obstacle:
-                    return 0.0, [0.0, 0.0, 0.0]
-                any_live = sm["hp_mask"][0, 0]
-                for f in range(1, n_hp_static):
-                    any_live = any_live + sm["hp_mask"][f, 0]
-                live = (any_live > 0).astype(jnp.float32)
-                vals, grads = [], []
-                for al in HP_PTS:
-                    px, pz, AX, AZ = combo(fk, al)
-                    ds = []
-                    for f in range(n_hp_static):
-                        d = (sm["hp_normals"][f, 0]
-                             * (sm["hp_points"][f, 0] - px)
-                             + sm["hp_normals"][f, 1] * sm["hp_points"][f, 1]
-                             + sm["hp_normals"][f, 2]
-                             * (sm["hp_points"][f, 2] - pz))
-                        ds.append(jnp.where(sm["hp_mask"][f, 0] > 0,
-                                            d, gb.NEG_BIG))
-                    dmax = ds[0]
-                    for d in ds[1:]:
-                        dmax = jnp.maximum(dmax, d)
-                    vals.append(jnp.where(any_live > 0, -dmax, gb.NEG_BIG))
-                    cnt = None
-                    for d in ds:
-                        mf = (d == dmax).astype(jnp.float32)
-                        cnt = mf if cnt is None else cnt + mf
-                    inv_cnt = 1.0 / cnt
-                    en0 = en2 = None
-                    for f, d in enumerate(ds):
-                        w = (d == dmax).astype(jnp.float32) * inv_cnt
-                        t0 = w * sm["hp_normals"][f, 0]
-                        t2 = w * sm["hp_normals"][f, 2]
-                        en0 = t0 if en0 is None else en0 + t0
-                        en2 = t2 if en2 is None else en2 + t2
-                    grads.append([live * (en0 * AX[i] + en2 * AZ[i])
-                                  for i in range(3)])
-                return _relu_max_grad(vals, grads, 3)
-
-            def selfcol_rows(fk):
-                """Hard rows (val, gq) — radius - ||chk - ee|| in arm frame
-                (y components identically 0)."""
-                exq, ezq = fk["x_q"][2], fk["z_q"][2]
-                rows = []
-                for al in SELF_CHK:
-                    px, pz, AX, AZ = combo(fk, al)
-                    v0 = px - fk["x"][2]
-                    v2 = pz - fk["z"][2]
-                    v0t, v2t = gb._as_tile(v0), gb._as_tile(v2)
-                    nrm = jnp.sqrt(v0t * v0t + v2t * v2t + 1e-9)
-                    coef = -1.0 / nrm
-                    gq = [_mul(coef,
-                               _add(_mul(v0t, _add(AX[i],
-                                                   _mul(-1.0, exq[i]))),
-                                    _mul(v2t, _add(AZ[i],
-                                                   _mul(-1.0, ezq[i])))))
-                          for i in range(3)]
-                    rows.append((SELF_COLLISION_RADIUS - nrm, gq))
-                return rows
-
-            def tracking(q, fk, sm, row, Wt):
-                if cartesian:
-                    e = [fk["x"][2] - sm["X_ref"][row, 0],
-                         0.0 - sm["X_ref"][row, 1],
-                         fk["z"][2] - sm["X_ref"][row, 2]]
-                    Je = [fk["x_q"][2], [0.0, 0.0, 0.0], fk["z_q"][2]]
-                else:
-                    e = [q[i] - sm["X_ref"][row, i] for i in range(3)]
-                    Je = [[1.0 if i == j else 0.0 for j in range(3)]
-                          for i in range(3)]
-                smax, sq = wedge_slack(fk, sm)
-                Ssm = SLACK_WEIGHT * smax
-                We = [_dot([Wt[j, l] for l in range(3)], e)
-                      for j in range(3)]
-                WJe = [[_dot([Wt[p, l] for l in range(3)],
-                             [Je[l][j] for l in range(3)])
-                        for j in range(3)] for p in range(3)]
-                gq = [_mul(two_s,
-                           _add(_dot([Je[p][i] for p in range(3)], We),
-                                _mul(Ssm, sq[i]))) for i in range(3)]
-                Hqq = [[_mul(two_s,
-                             _add(_dot([Je[p][i] for p in range(3)],
-                                       [WJe[p][j] for p in range(3)]),
-                                  _mul(SLACK_WEIGHT,
-                                       _mul(sq[i], sq[j]))))
-                        for j in range(3)] for i in range(3)]
-                return gq, Hqq
-
-            def qbox_rows(q):
-                rows = []
-                for i in range(3):
-                    gq = [0.0] * 3
-                    gq[i] = 1.0
-                    rows.append((q[i] - qhi_f[i], gq))
-                for i in range(3):
-                    gq = [0.0] * 3
-                    gq[i] = -1.0
-                    rows.append((qlo_f[i] - q[i], gq))
-                return rows
-
-            def stage_quad(q, u, sm, k, tr):
-                fk = arm_partials(q, tr)
-                lq, lqq = tracking(q, fk, sm, k, sm["Q"])
-                eu = [u[i] - sm["U_ref"][k, i] for i in range(3)]
-                edu = [u[i] - sm["U_last"][k, i] for i in range(3)]
-                lu = [_mul(two_s,
-                           _add(_dot([sm["R"][i, j] for j in range(3)], eu),
-                                _dot([sm["M"][i, j] for j in range(3)],
-                                     edu))) for i in range(3)]
-                luu = [[two_s * (sm["R"][i, j] + sm["M"][i, j])
-                        for j in range(3)] for i in range(3)]
-                lux = [[0.0] * 3 for _ in range(3)]
-                cons = [(v, gq, [0.0] * 3) for v, gq in qbox_rows(q)]
-                for i in range(3):
-                    gu = [0.0] * 3
-                    gu[i] = 1.0
-                    cons.append((edu[i] - ddhi_f[i], [0.0] * 3, gu))
-                for i in range(3):
-                    gu = [0.0] * 3
-                    gu[i] = -1.0
-                    cons.append((ddlo_f[i] - edu[i], [0.0] * 3, gu))
-                cons += [(v, gq, [0.0] * 3) for v, gq in selfcol_rows(fk)]
-                return lq, lu, lqq, luu, lux, cons
-
-            def term_quad(q, sm, tr):
-                fk = arm_partials(q, tr)
-                gq, Hqq = tracking(q, fk, sm, N, sm["P"])
-                return gq, Hqq, qbox_rows(q) + selfcol_rows(fk), []
-
-            hooks = gb.BwdHooks(
-                nc=16, nct=10, ne=0,
-                smem_shapes={"Q": (3, 3), "R": (3, 3), "P": (3, 3),
-                             "M": (3, 3), "X_ref": (N + 1, 3),
-                             "U_ref": (N, 3), "U_last": (N, 3),
-                             "hp_points": (n_hp_static, 3),
-                             "hp_normals": (n_hp_static, 3),
-                             "hp_mask": (n_hp_static, 1)},
-                pack=lambda p: {k: p[k] for k in (
-                    "Q", "R", "P", "M", "X_ref", "U_ref", "U_last",
-                    "hp_points", "hp_normals", "hp_mask")},
-                dyn_jac=lambda q, u, sm, k, tr: (
-                    [[1.0 if i == j else 0.0 for j in range(3)]
-                     for i in range(3)],
-                    [[dt_f if i == j else 0.0 for j in range(3)]
-                     for i in range(3)]),
-                stage_quad=stage_quad, term_quad=term_quad,
-                # incremental trig run in reverse: terminal trig once,
-                # rotate back by dt * u (the clamped joint rates) per stage
-                n_carry=6,
-                carry_init=lambda xt, sm: arm_trig_t(xt[0], xt[1], xt[2]),
-                carry_retreat=lambda c, q, u, sm: arm_trig_advance_t(
-                    c, -dt_f * u[0], -dt_f * u[1], -dt_f * u[2]))
-            return gb.make_generic_bwd_fused(nx=3, nu=3, N=N, hooks=hooks)
-
         ocp = OCP(nx=self.NX, nu=self.NU, N=N, dynamics=dynamics,
                   stage_cost=stage_cost, terminal_cost=terminal_cost,
                   stage_ineq=stage_ineq, terminal_ineq=terminal_ineq,
@@ -531,9 +237,7 @@ class MPCManipulator3DoF(ControllerBase):
                   terminal_residuals=terminal_residuals,
                   dynamics_jacobians=dynamics_jacobians,
                   stage_al_expansion=stage_al_expansion,
-                  terminal_al_expansion=terminal_al_expansion,
-                  lanes_fwd_factory=lanes_fwd_factory,
-                  lanes_bwd_factory=lanes_bwd_factory)
+                  terminal_al_expansion=terminal_al_expansion)
         super().__init__(ocp, solver_config or SolverConfig())
         self.reset()
 

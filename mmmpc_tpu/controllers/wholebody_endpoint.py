@@ -174,267 +174,6 @@ class MPCWholeBodyEndpoint(ControllerBase):
             )
             return wholebody_jacobians(x, u, dt)
 
-        n_obs = int(self.obstacles_value.shape[0])
-        ulim_np = self.ulim
-
-        def lanes_fwd_factory(cfg):
-            from mmmpc_tpu.ops import generic_fwd as gf
-            from mmmpc_tpu.ops.wholebody_fwd import (
-                _dyn_tr, _fk_from_trig, _trig_advance, _trig_full,
-            )
-            # static python floats/bools — jnp closures would become kernel
-            # tracers under pallas
-            xlo_f = [float(v) for v in np.asarray(x_lo)]
-            xhi_f = [float(v) for v in np.asarray(x_hi)]
-            xmlo_f = [bool(v) for v in np.asarray(x_mlo)]
-            xmhi_f = [bool(v) for v in np.asarray(x_mhi)]
-            dulo_f = [float(v) for v in np.asarray(du_lo)]
-            duhi_f = [float(v) for v in np.asarray(du_hi)]
-            dumlo_f = [bool(v) for v in np.asarray(du_mlo)]
-            dumhi_f = [bool(v) for v in np.asarray(du_mhi)]
-
-            dt_fwd = float(dt)
-
-            def dyn(x, u, carry):
-                return _dyn_tr(x, u, dt_fwd, carry[6], carry[7])
-
-            def pose_err(x, sm, row, carry):
-                ee, _, _ = _fk_from_trig(x, carry)
-                return [ee[0] - sm["X_ref"][row, 0],
-                        ee[1] - sm["X_ref"][row, 1],
-                        ee[2] - sm["X_ref"][row, 2],
-                        x[2] - sm["X_ref"][row, 3]]
-
-            def slack_pen(x, sm):
-                if n_obs == 0:
-                    return 0.0
-                gs = gf.ground_circles_t(x[0], x[1], sm["obstacles"], n_obs,
-                                         base_radius)
-                smax = gf.relu_max_t(gs)
-                return sm["S"][0, 0] * smax * smax
-
-            def box_x(x):
-                rows = [(x[i] - xhi_f[i]) if xmhi_f[i] else gf.NEG_BIG
-                        for i in range(9)]
-                rows += [(xlo_f[i] - x[i]) if xmlo_f[i] else gf.NEG_BIG
-                         for i in range(9)]
-                return rows
-
-            def stage(x, u, sm, g, carry):
-                e = pose_err(x, sm, g, carry)
-                eu = [u[i] - sm["U_ref"][g, i] for i in range(5)]
-                edu = [u[i] - sm["U_last"][g, i] for i in range(5)]
-                raw = (gf.qform_t(sm["Q"], e) + gf.qform_t(sm["R"], eu)
-                       + gf.qform_t(sm["W"], edu) + slack_pen(x, sm))
-                gdu = [(edu[i] - duhi_f[i]) if dumhi_f[i] else gf.NEG_BIG
-                       for i in range(5)]
-                gdu += [(dulo_f[i] - edu[i]) if dumlo_f[i]
-                        else gf.NEG_BIG for i in range(5)]
-                return raw, box_x(x) + gdu
-
-            def terminal(x, sm, carry):
-                e = pose_err(x, sm, N, carry)
-                raw = gf.qform_t(sm["P"], e) + slack_pen(x, sm)
-                return raw, box_x(x), []
-
-            def pack(p):
-                out = {k: p[k] for k in ("Q", "R", "P", "S", "W",
-                                         "X_ref", "U_ref", "U_last")}
-                out["obstacles"] = (p["obstacles"] if n_obs
-                                    else jnp.zeros((1, 3)))
-                return out
-
-            hooks = gf.LanesHooks(
-                nc=28, nct=18, ne=0,
-                smem_shapes={"Q": (4, 4), "R": (5, 5), "P": (4, 4),
-                             "S": (1, 1), "W": (5, 5),
-                             "X_ref": (N + 1, 4), "U_ref": (N, 5),
-                             "U_last": (N, 5),
-                             "obstacles": (max(n_obs, 1), 3)},
-                pack=pack, dyn=dyn, stage=stage, terminal=terminal,
-                # incremental wholebody trig (8 sin/cos once per rollout)
-                n_carry=8,
-                carry_init=lambda x, sm: _trig_full(x),
-                carry_step=lambda c, x, u, sm: _trig_advance(
-                    c, x, u, dt_fwd))
-            alphas = [cfg.alpha_decay ** i for i in range(cfg.n_alpha)]
-            return gf.make_generic_fwd_linesearch(
-                nx=9, nu=5, N=N, u_clamp=(ulim_np[0], ulim_np[1]),
-                alphas=alphas, inv_scale=1.0 / cfg.cost_scale, hooks=hooks)
-
-        def lanes_bwd_factory(cfg):
-            from mmmpc_tpu.ops import generic_bwd as gb
-            from mmmpc_tpu.ops.wholebody_bwd import (
-                _add, _dot, _fk_partials, _mul, _relu_max_grad,
-            )
-            from mmmpc_tpu.ops.wholebody_fwd import (
-                _trig_full, _trig_retreat,
-            )
-            two_s = 2.0 / cfg.cost_scale
-            dt_f = float(dt)
-            xlo_f = [float(v) for v in np.asarray(x_lo)]
-            xhi_f = [float(v) for v in np.asarray(x_hi)]
-            xmlo_f = [bool(v) for v in np.asarray(x_mlo)]
-            xmhi_f = [bool(v) for v in np.asarray(x_mhi)]
-            dulo_f = [float(v) for v in np.asarray(du_lo)]
-            duhi_f = [float(v) for v in np.asarray(du_hi)]
-            dumlo_f = [bool(v) for v in np.asarray(du_mlo)]
-            dumhi_f = [bool(v) for v in np.asarray(du_mhi)]
-
-            def dyn_jac(x, u, sm, k, tr):
-                # sparse closed form (models/mobile_manipulator.py:56-84);
-                # psi trig from the incremental sweep carry
-                spsi, cpsi = tr[6], tr[7]
-                A = [[1.0 if i == j else 0.0 for j in range(9)]
-                     for i in range(9)]
-                A[0][3] = dt_f
-                A[1][4] = dt_f
-                A[2][5] = dt_f
-                A[3][2] = -dt_f * u[0] * spsi
-                A[3][4] = -dt_f * x[5]
-                A[3][5] = -dt_f * x[4]
-                A[4][2] = dt_f * u[0] * cpsi
-                A[4][3] = dt_f * x[5]
-                A[4][5] = dt_f * x[3]
-                Bm = [[0.0] * 5 for _ in range(9)]
-                Bm[3][0] = dt_f * cpsi
-                Bm[4][0] = dt_f * spsi
-                Bm[5][1] = dt_f
-                Bm[6][2] = dt_f
-                Bm[7][3] = dt_f
-                Bm[8][4] = dt_f
-                return A, Bm
-
-            def slack_grads(x, sm):
-                # relu(max ground circles) with even tie-splitting (matches
-                # _slack_vg's value_and_grad semantics)
-                if n_obs == 0:
-                    return 0.0, [0.0] * 9
-                vals, grads = [], []
-                for o in range(n_obs):
-                    dx0 = x[0] - sm["obstacles"][o, 0]
-                    dy0 = x[1] - sm["obstacles"][o, 1]
-                    d2 = dx0 * dx0 + dy0 * dy0 + 1e-9
-                    inv = jax.lax.rsqrt(d2)     # no divide (roofline --peak)
-                    vals.append((sm["obstacles"][o, 2] + base_radius)
-                                - d2 * inv)
-                    grads.append([-dx0 * inv, -dy0 * inv,
-                                  0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0])
-                return _relu_max_grad(vals, grads, 9)
-
-            def pose_model(x, sm, row, tr):
-                fk = _fk_partials(x, tr)
-                e = [fk["ee"][0] - sm["X_ref"][row, 0],
-                     fk["ee"][1] - sm["X_ref"][row, 1],
-                     fk["ee"][2] - sm["X_ref"][row, 2],
-                     x[2] - sm["X_ref"][row, 3]]
-                cp, sp = fk["cp"], fk["sp"]
-                Jp = [
-                    [1.0, 0.0, -fk["re"] * sp, 0.0, 0.0, 0.0,
-                     cp * fk["axe_q"][0], cp * fk["axe_q"][1],
-                     cp * fk["axe_q"][2]],
-                    [0.0, 1.0, fk["re"] * cp, 0.0, 0.0, 0.0,
-                     sp * fk["axe_q"][0], sp * fk["axe_q"][1],
-                     sp * fk["axe_q"][2]],
-                    [0.0] * 6 + [fk["aze_q"][0], fk["aze_q"][1],
-                                 fk["aze_q"][2]],
-                    [0.0, 0.0, 1.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0],
-                ]
-                return e, Jp
-
-            def tracking_blocks(x, sm, row, Wt, tr):
-                """two_s * (Jp^T Wt e + S smax sx) and its GN Hessian."""
-                e, Jp = pose_model(x, sm, row, tr)
-                smax, sx = slack_grads(x, sm)
-                S = sm["S"][0, 0]
-                Ssm = S * smax
-                We = [_dot([Wt[j, l] for l in range(4)], e)
-                      for j in range(4)]
-                WJp = [[_dot([Wt[p, l] for l in range(4)],
-                             [Jp[l][j] for l in range(4)])
-                        for j in range(9)] for p in range(4)]
-                gx = [_mul(two_s,
-                           _add(_dot([Jp[p][i] for p in range(4)], We),
-                                _mul(Ssm, sx[i]))) for i in range(9)]
-                Hxx = [[_mul(two_s,
-                             _add(_dot([Jp[p][i] for p in range(4)],
-                                       [WJp[p][j] for p in range(4)]),
-                                  _mul(S, _mul(sx[i], sx[j]))))
-                        for j in range(9)] for i in range(9)]
-                return gx, Hxx
-
-            def box_rows_x(x):
-                rows = []
-                for i in range(9):
-                    if xmhi_f[i]:
-                        gx_c = [0.0] * 9
-                        gx_c[i] = 1.0
-                        rows.append((x[i] - xhi_f[i], gx_c))
-                    else:
-                        rows.append((gb.NEG_BIG, [0.0] * 9))
-                for i in range(9):
-                    if xmlo_f[i]:
-                        gx_c = [0.0] * 9
-                        gx_c[i] = -1.0
-                        rows.append((xlo_f[i] - x[i], gx_c))
-                    else:
-                        rows.append((gb.NEG_BIG, [0.0] * 9))
-                return rows
-
-            def stage_quad(x, u, sm, k, tr):
-                lx, lxx = tracking_blocks(x, sm, k, sm["Q"], tr)
-                eu = [u[i] - sm["U_ref"][k, i] for i in range(5)]
-                edu = [u[i] - sm["U_last"][k, i] for i in range(5)]
-                lu = [_mul(two_s,
-                           _add(_dot([sm["R"][i, j] for j in range(5)], eu),
-                                _dot([sm["W"][i, j] for j in range(5)],
-                                     edu))) for i in range(5)]
-                luu = [[two_s * (sm["R"][i, j] + sm["W"][i, j])
-                        for j in range(5)] for i in range(5)]
-                lux = [[0.0] * 9 for _ in range(5)]
-                cons = [(v, gx_c, [0.0] * 5) for v, gx_c in box_rows_x(x)]
-                for i in range(5):
-                    gu_c = [0.0] * 5
-                    gu_c[i] = 1.0
-                    cons.append((edu[i] - duhi_f[i], [0.0] * 9, gu_c)
-                                if dumhi_f[i]
-                                else (gb.NEG_BIG, [0.0] * 9, [0.0] * 5))
-                for i in range(5):
-                    gu_c = [0.0] * 5
-                    gu_c[i] = -1.0
-                    cons.append((dulo_f[i] - edu[i], [0.0] * 9, gu_c)
-                                if dumlo_f[i]
-                                else (gb.NEG_BIG, [0.0] * 9, [0.0] * 5))
-                return lx, lu, lxx, luu, lux, cons
-
-            def term_quad(x, sm, tr):
-                gx, Hxx = tracking_blocks(x, sm, N, sm["P"], tr)
-                return gx, Hxx, box_rows_x(x), []
-
-            def pack(p):
-                out = {k: p[k] for k in ("Q", "R", "P", "S", "W",
-                                         "X_ref", "U_ref", "U_last")}
-                out["obstacles"] = (p["obstacles"] if n_obs
-                                    else jnp.zeros((1, 3)))
-                return out
-
-            hooks = gb.BwdHooks(
-                nc=28, nct=18, ne=0,
-                smem_shapes={"Q": (4, 4), "R": (5, 5), "P": (4, 4),
-                             "S": (1, 1), "W": (5, 5),
-                             "X_ref": (N + 1, 4), "U_ref": (N, 5),
-                             "U_last": (N, 5),
-                             "obstacles": (max(n_obs, 1), 3)},
-                pack=pack, dyn_jac=dyn_jac, stage_quad=stage_quad,
-                term_quad=term_quad,
-                # incremental wholebody trig in reverse (terminal trig
-                # once, rotate back by this stage's dt*(rates) deltas)
-                n_carry=8,
-                carry_init=lambda xt, sm: _trig_full(xt),
-                carry_retreat=lambda c, x, u, sm: _trig_retreat(
-                    c, x, u, dt_f))
-            return gb.make_generic_bwd_fused(nx=9, nu=5, N=N, hooks=hooks)
-
         ocp = OCP(nx=self.NX, nu=self.NU, N=N, dynamics=dynamics,
                   stage_cost=stage_cost, terminal_cost=terminal_cost,
                   stage_ineq=stage_ineq, terminal_ineq=terminal_ineq,
@@ -444,9 +183,7 @@ class MPCWholeBodyEndpoint(ControllerBase):
                   terminal_residuals=terminal_residuals,
                   dynamics_jacobians=dynamics_jacobians,
                   stage_al_expansion=stage_al_expansion,
-                  terminal_al_expansion=terminal_al_expansion,
-                  lanes_fwd_factory=lanes_fwd_factory,
-                  lanes_bwd_factory=lanes_bwd_factory)
+                  terminal_al_expansion=terminal_al_expansion)
         super().__init__(ocp, solver_config or SolverConfig())
         self.reset()
 

@@ -1,6 +1,6 @@
 """Whole-body MPC with joint-space reference — THE main controller.
 
-TPU-native re-design of the reference MPCWholeBody
+JAX re-design of the reference MPCWholeBody
 (/root/reference/controllers/mpc_wholebody_qref.py): 9-state / 5-input
 receding-horizon MPC with
 
@@ -342,38 +342,26 @@ class MPCWholeBody(ControllerBase):
             return gx, Hxx
 
         # ---- fused forward line-search kernel (ops/wholebody_fwd.py) ----
-        xb = (self._x_lo, self._x_hi, self._x_mlo, self._x_mhi)
-        dub = (self._du_lo, self._du_hi, self._du_mlo, self._du_mhi)
+        xb = tuple(np.asarray(b) for b in (self._x_lo, self._x_hi,
+                                           self._x_mlo, self._x_mhi))
+        dub = tuple(np.asarray(b) for b in (self._du_lo, self._du_hi,
+                                            self._du_mlo, self._du_mhi))
         ulim_np = self.ulim
         n_obs, n_hp = self.n_obs, self.n_hp
 
-        def lanes_fwd_factory(cfg):
+        def lanes_fwd_factory(cfg, interpret=False):
             from mmmpc_tpu.ops.wholebody_fwd import make_fwd_linesearch
-            alphas = [cfg.alpha_decay ** i for i in range(cfg.n_alpha)]
             return make_fwd_linesearch(
                 nx=self.NX, nu=self.NU, N=N, dt=dt,
                 base_radius=base_radius, n_obs=n_obs, n_hp=n_hp,
-                x_bounds=tuple(np.asarray(b) for b in xb),
-                du_bounds=tuple(np.asarray(b) for b in dub),
-                u_clamp=(ulim_np[0], ulim_np[1]),
-                alphas=alphas, inv_scale=1.0 / cfg.cost_scale,
-                bug_compat=bug_compat, moving=moving)
-
-        def lanes_bwd_factory(cfg):
-            from mmmpc_tpu.ops.wholebody_bwd import make_bwd_fused
-            return make_bwd_fused(
-                nx=self.NX, nu=self.NU, N=N, dt=dt,
-                base_radius=base_radius, n_obs=n_obs, n_hp=n_hp,
-                x_bounds=tuple(np.asarray(b) for b in xb),
-                du_bounds=tuple(np.asarray(b) for b in dub),
-                inv_scale=1.0 / cfg.cost_scale,
-                bug_compat=bug_compat, moving=moving)
+                x_bounds=xb, du_bounds=dub, u_clamp=(ulim_np[0], ulim_np[1]),
+                alphas=[cfg.alpha_decay ** i for i in range(cfg.n_alpha)],
+                inv_scale=1.0 / cfg.cost_scale, bug_compat=bug_compat,
+                moving=moving, interpret=interpret)
 
         return OCP(
             nx=self.NX, nu=self.NU, N=N, dynamics=dynamics,
             lanes_fwd_factory=lanes_fwd_factory,
-            lanes_bwd_factory=lanes_bwd_factory,
-            lanes_per_scenario_u_last=True,
             lanes_per_scenario_keys=frozenset(
                 {"U_last", "X_ref", "U_ref", "Q", "P", "eq_mask"}),
             stage_cost=stage_cost, terminal_cost=terminal_cost,

@@ -180,9 +180,10 @@ def arm_ik(q_init, x_target, iters: int = 300, lm_lambda: float = 1e-6):
         costs = jax.vmap(lambda qq: sqnorm(_ik_residual(qq, xt, zt)))(cands)
         return cands[jnp.argmin(costs)]
 
-    q0 = jnp.clip(jnp.asarray(q_init), ARM_IK_LOWER, ARM_IK_UPPER)
-    # millimetre-accurate IK needs full-f32 multiplies on TPU (the MXU
-    # defaults to bf16; see SolverConfig.matmul_precision for the
-    # closed-loop failure this prevents)
+    q_init = jnp.asarray(q_init)
+    q0 = jnp.clip(q_init, ARM_IK_LOWER.astype(q_init.dtype),
+                  ARM_IK_UPPER.astype(q_init.dtype))
+    # millimetre-accurate IK needs full-f32 multiplies (a float32 product
+    # may run in TF32 on the GPU; see SolverConfig.matmul_precision)
     with jax.default_matmul_precision("highest"):
         return jax.lax.fori_loop(0, iters, body, q0)

@@ -2,7 +2,7 @@
 
 Each function returns constraint values with the convention ``g <= 0`` is
 satisfied, evaluated for a single state (vmap over the horizon happens in the
-solver).  These are the TPU-native forms of the reference's per-k Python
+solver).  These are the vectorized forms of the reference's per-k Python
 loops over CasADi expressions (mpc_wholebody_qref.py:49-89,208-227).
 """
 

@@ -51,7 +51,7 @@ class OCP:
     sum-of-squares factorization of the costs: cost == sum(residuals**2)
     exactly.  When provided, the solver uses Gauss-Newton expansions
     (forward-only Jacobians, PSD Hessian by construction) instead of exact
-    AD Hessians — the dominant per-iteration cost on TPU.  All reference
+    AD Hessians.  All reference
     formulations are sums of squares (quadratic tracking + relu^2 slack
     penalties), so every built-in controller supplies them.
     """
@@ -82,30 +82,19 @@ class OCP:
     terminal_eq_jac: Optional[Callable] = None     # (x,params) -> (h, Jh)
     dynamics_jacobians: Optional[Callable] = None  # (x,u) -> (A, B)
 
-    # Optional batch-on-lanes forward line-search kernel factory
-    # (ops/wholebody_fwd.py).  Signature: factory(cfg) -> fwd(X_bm, U_bm,
-    # kff_bm, K_bm, lam_bm, mu, params).  When provided (and on TPU with
-    # batch % 1024 == 0) the batched solver runs its whole inner loop in
-    # batch-minor layout with the rollout + line search fused into one
-    # Pallas kernel.
+    # Optional fused forward line-search kernel factory for the batched
+    # solver's lanes path (ops/wholebody_fwd.py).  Signature:
+    # factory(cfg, interpret) -> fwd(X_bm, U_bm, kff_bm, K_bm, lam_bm,
+    # lamt_bm, lame_bm, mu, params) -> (Xc, Uc, xlast, cc) on batch-minor
+    # arrays, cc including the terminal AL cost.  When provided, the batched
+    # solver runs its forward pass through it on the GPU.
     lanes_fwd_factory: Optional[Callable] = None
-    # Optional fused AL-expansion + Riccati backward kernel factory
-    # (ops/wholebody_bwd.py, ops/generic_bwd.py).  Signature: factory(cfg)
-    # -> bwd(X_bm, U_bm, lam_stage_bm, lam_term_bm, lam_eq_bm, mu, reg,
-    # params) -> (kff, K).
-    lanes_bwd_factory: Optional[Callable] = None
-    # True only when BOTH lanes kernels read a per-scenario (N, nu, B)
-    # U_last as a VMEM operand (fleet serving: each robot's own previous
-    # commands).  Kernels that read U_last from shared SMEM must leave this
-    # False so the batched solver routes per-scenario params to the vmap
-    # fallback instead of silently using one robot's values.
-    lanes_per_scenario_u_last: bool = False
-    # Params keys BOTH lanes kernels can consume per-scenario (batch-minor
-    # trailing axis) as VMEM operands.  Superset of the U_last flag; the
-    # fleet task engine needs {"U_last", "X_ref", "Q", "P", "eq_mask"}
-    # (each robot's phase owns its reference window, weight-table row and
-    # terminal-equality mask).  Per-scenario Q/P must be DIAGONAL — the
-    # kernel wrappers extract and consume only the diagonals.
+    # Params keys the kernel consumes per scenario (batch-minor trailing
+    # axis).  The fleet task engine needs {"U_last", "X_ref", "U_ref", "Q",
+    # "P", "eq_mask"} (each robot's phase owns its reference window,
+    # weight-table row and terminal-equality mask).  Per-scenario Q/P must
+    # be DIAGONAL — the kernel wrapper consumes only the diagonals.  Other
+    # per-scenario keys route the solve to the vmapped path.
     lanes_per_scenario_keys: frozenset = frozenset()
 
     # Fully-structured AL expansion (fastest of all): the controller returns

@@ -1,1 +1,2 @@
-from mmmpc_tpu.ops.riccati import riccati_backward  # noqa: F401
+"""Hand-fused Pallas kernels (Triton route) and the associative-scan
+Riccati."""

@@ -1,10 +1,9 @@
 """Associative-scan (parallel-prefix) Riccati backward pass.
 
 The iLQR backward sweep is a sequential recursion in the horizon — fine at
-N=20 (ops/riccati.py makes each step cheap), but for long-horizon studies
-(N in the hundreds/thousands) the O(N) depth itself becomes the bottleneck:
-on TPU every sequential step is a dependent round through the VPU while the
-rest of the chip idles.  This module reformulates the backward pass as an
+N=20, but for long-horizon studies (N in the hundreds/thousands) the O(N)
+depth itself becomes the bottleneck at small batch: every sequential step
+is a dependent round while the rest of the device idles.  This module reformulates the backward pass as an
 associative operation and evaluates it with jax.lax.associative_scan in
 O(log N) depth — the control-horizon analogue of sequence parallelism
 (SURVEY.md §5: the reference's horizon is a Python for-loop over CasADi

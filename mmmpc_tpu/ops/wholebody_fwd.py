@@ -1,41 +1,39 @@
-"""Pallas TPU kernel: fused forward rollout + parallel line search for the
-whole-body qref MPC.
+"""Pallas kernel (Triton route): fused forward rollout + parallel line search
+for the whole-body qref MPC.
 
-After the Riccati backward sweep was moved into a batch-on-lanes kernel
-(ops/riccati.py), the iLQR iteration became dominated by the *forward* pass:
-a sequential lax.scan over the horizon whose per-step working set (one 9-state
-per scenario) is far too small to hide HBM/launch latency — ~0.6 ms of a
-~0.95 ms iteration at batch 1024 on v5e, nearly independent of the number of
-line-search candidates (the scan is latency-bound, not compute-bound).
+One iLQR iteration's forward pass is a closed-loop rollout over the horizon
+for every line-search step size.  As XLA code it is a ``lax.scan`` whose
+per-step working set is one 9-state per scenario, so each of the N dependent
+steps costs at least one kernel launch whatever the batch.  This kernel runs
+the complete control-limited rollout for ALL step sizes in one launch:
 
-This kernel runs the complete control-limited rollout for ALL line-search
-step sizes in one pass over the horizon:
-
-- **batch on lanes**: every scalar of the recursion is a (8, 128) tile of
-  1024 scenarios (layout shared with ops/riccati.py, so the backward kernel's
-  gains feed this kernel with no layout change);
-- **VMEM-resident carry**: the per-alpha states, the stage-cost accumulators
-  and the world-frame FK of the current states live in scratch across grid
-  steps; the FK of x_{k+1} computed for the dynamics step is reused as the
-  constraint FK of step k+1 (and, on the last stage, as the reference's
+- **one scenario per lane**: a program owns a power-of-two block of
+  scenarios and every scalar of the recursion is a ``(block,)`` vector;
+  arrays are batch-minor (``(..., B)``), so every load is contiguous along
+  the batch;
+- **the horizon is a loop inside the program**: the per-candidate states,
+  the trig carry and the running costs are ``fori_loop`` carries held in
+  registers; the FK of x_{k+1} computed for the dynamics step is reused as
+  the constraint FK of step k+1 (and, on the last stage, as the reference's
   bug-compatible terminal self-collision group), so each stage pays exactly
   one FK per candidate;
-- **per-problem data in SMEM**: references, weights, obstacle/half-plane
-  geometry and the AL penalty mu are scalar reads — runtime-mutable (the
-  setWeight mechanism) without recompilation; bounds and masks are static
-  Python floats baked into the unrolled penalty rows.
+- **shared problem data as scalars**: references, weights, obstacle and
+  half-plane geometry and the AL penalty mu are scalar loads from small
+  global arrays — runtime-mutable (the setWeight mechanism) without
+  recompilation; bounds and masks are static Python floats baked into the
+  unrolled penalty rows.
 
 The stage semantics replicate solver/al_ilqr.py's fwd_pass + the whole-body
-controller's AL stage cost exactly (asserted in tests/test_fwd_lanes.py):
+controller's AL stage cost (asserted in tests/test_fwd_lanes.py):
 
     u_k   = clamp(U_k + alpha * kff_k + K_k (x_k - X_k))
     cost += stage_cost(x_k, u_k) / cost_scale + PHR(stage_ineq, lam_k, mu)
     x_{k+1} = f(x_k, u_k)
 
 The terminal AL cost (P-tracking + terminal slack groups + PHR on the
-terminal boxes + the maskable position equality) is fused into the last
-grid step, where the FK of x_N is already in registers — the returned
-per-candidate costs are complete.
+terminal boxes + the maskable position equality) is added after the loop,
+where the FK of x_N is already in registers — the returned per-candidate
+costs are complete.
 
 Reference formulation being accelerated: /root/reference/controllers/
 mpc_wholebody_qref.py:142-331 (costs/constraints) and the rollout protocol
@@ -47,11 +45,10 @@ from __future__ import annotations
 import functools
 import math
 
-import numpy as np
 import jax
 import jax.numpy as jnp
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as plt
 
 from mmmpc_tpu.models.arm import A2, A3, A5, A6, A7
 from mmmpc_tpu.ocp.constraints import (
@@ -59,41 +56,55 @@ from mmmpc_tpu.ocp.constraints import (
 )
 from mmmpc_tpu.utils.configs import BASELINK2JOINT1_X, BASELINK2JOINT1_Z
 
-SUB, LANE = 8, 128
-LANES = SUB * LANE
-
-# Set True to run the kernel through the pallas interpreter (CPU testing).
-INTERPRET = False
+# Scenarios per program and warps per program.  One scenario per thread
+# (block = 32 * num_warps) keeps every per-scenario value in one thread's
+# registers; 8192 scenarios then make 128 programs for the card's 132 SMs.
+BLOCK = 64
+NUM_WARPS = 2
 
 _NEG_BIG = -1e9
 _EPS = 1e-9  # matches utils/math.safe_norm / safe_dist
 
 
-def _fk_world(x):
-    """World-frame (ee, j2, j3) as lists of 3 tiles each — direct sin/cos
-    form (models/mobile_manipulator.wholebody_fk; reference
-    forward_tranformation, mobile_manipulator.py:17-55).  The flagship
-    kernel below uses the incremental-trig form instead; this remains for
-    the generic-kernel controller hooks (controllers/wholebody_endpoint.py).
-    """
-    return _fk_from_trig(x, _trig_full(x))
+# --------------------------------------------------------------------------
+# launch plumbing
+# --------------------------------------------------------------------------
+
+def _lanes_spec(shape):
+    """BlockSpec of a batch-minor operand ``shape + (B,)``: program b sees
+    lanes [b * BLOCK, (b + 1) * BLOCK)."""
+    n = len(shape)
+    return pl.BlockSpec(tuple(shape) + (BLOCK,), lambda b: (0,) * n + (b,))
 
 
-def _dyn(x, u, dt):
-    """Tile-component wholebody_step (reference mobile_manipulator.py:57-75)
-    — direct sin/cos form for generic-kernel controller hooks."""
-    return _dyn_tr(x, u, dt, jnp.sin(x[2]), jnp.cos(x[2]))
+def _whole_spec(shape):
+    """BlockSpec of a shared operand every program reads whole."""
+    n = len(shape)
+    return pl.BlockSpec(tuple(shape), lambda b: (0,) * n)
 
+
+def _pad_lanes(a, padded):
+    """Pad the trailing batch axis to ``padded`` with copies of the last
+    scenario (the pad lanes then compute finite values; the wrapper drops
+    them)."""
+    B = a.shape[-1]
+    if B == padded:
+        return a
+    return jnp.pad(a, [(0, 0)] * (a.ndim - 1) + [(0, padded - B)],
+                   mode="edge")
+
+
+# --------------------------------------------------------------------------
+# per-lane algebra
+# --------------------------------------------------------------------------
 
 def _trig_full(x):
-    """The 8 trig tiles the rollout carries: [s1, c1, st, ct, sb, cb, sp, cp]
-    (sin/cos of q1, th = q1-q2, be = th-q3, psi).
+    """The 8 trig vectors the rollout carries: [s1, c1, st, ct, sb, cb, sp,
+    cp] (sin/cos of q1, th = q1-q2, be = th-q3, psi).
 
-    Computed ONCE per rollout (first grid step); every subsequent stage
+    Computed ONCE per rollout (before the horizon loop); every stage then
     advances them with the angle-addition identity + a small-angle
-    polynomial instead of re-evaluating sin/cos (measured ~50 FMA-slots
-    each on the v5e, scripts/roofline.py — they were ~40% of the forward
-    kernel's true op cost)."""
+    polynomial instead of re-evaluating sin/cos."""
     q1 = x[6]
     th = q1 - x[7]
     be = th - x[8]
@@ -123,48 +134,20 @@ def _rot(s, c, sd, cd):
 
 def _trig_advance(tr, x, u, dt):
     """Advance the trig carry across one dynamics step: the new angles are
-    q1 + dt u2, th + dt (u2-u3), be + dt (u2-u3-u4), psi + dt dpsi —
-    the exact increments of _dyn — so the rotation is the exact angle-sum
-    identity with only the tiny-delta sin/cos approximated."""
+    q1 + dt u2, th + dt (u2-u3), be + dt (u2-u3-u4), psi + dt dpsi — the
+    exact increments of the dynamics — so the rotation is the exact
+    angle-sum identity with only the tiny-delta sin/cos approximated."""
     s1, c1, st, ct, sb, cb, sp, cp = tr
-    d1 = dt * u[2]
-    dth = dt * (u[2] - u[3])
-    dbe = dt * (u[2] - u[3] - u[4])
-    dps = dt * x[5]
-    sd, cd = _sincos_small(d1)
-    s1, c1 = _rot(s1, c1, sd, cd)
-    sd, cd = _sincos_small(dth)
-    st, ct = _rot(st, ct, sd, cd)
-    sd, cd = _sincos_small(dbe)
-    sb, cb = _rot(sb, cb, sd, cd)
-    sd, cd = _sincos_small(dps)
-    sp, cp = _rot(sp, cp, sd, cd)
-    return [s1, c1, st, ct, sb, cb, sp, cp]
-
-
-def _trig_retreat(tr, x, u, dt):
-    """Inverse of _trig_advance: given trig of stage k+1's angles and
-    (x_k, u_k), rotate BACK to stage k's trig — the backward Riccati
-    sweep's carry (valid because X is always the open-loop rollout of U,
-    solver/batched.py invariant)."""
-    s1, c1, st, ct, sb, cb, sp, cp = tr
-    d1 = dt * u[2]
-    dth = dt * (u[2] - u[3])
-    dbe = dt * (u[2] - u[3] - u[4])
-    dps = dt * x[5]
-    sd, cd = _sincos_small(d1)
-    s1, c1 = _rot(s1, c1, -sd, cd)
-    sd, cd = _sincos_small(dth)
-    st, ct = _rot(st, ct, -sd, cd)
-    sd, cd = _sincos_small(dbe)
-    sb, cb = _rot(sb, cb, -sd, cd)
-    sd, cd = _sincos_small(dps)
-    sp, cp = _rot(sp, cp, -sd, cd)
-    return [s1, c1, st, ct, sb, cb, sp, cp]
+    out = []
+    for (s, c), d in zip(((s1, c1), (st, ct), (sb, cb), (sp, cp)),
+                         (dt * u[2], dt * (u[2] - u[3]),
+                          dt * (u[2] - u[3] - u[4]), dt * x[5])):
+        out += _rot(s, c, *_sincos_small(d))
+    return out
 
 
 def _fk_from_trig(x, tr):
-    """World-frame (ee, j2, j3) from the carried trig tiles — the same
+    """World-frame (ee, j2, j3) from the carried trig vectors — the same
     algebra as models/mobile_manipulator.wholebody_fk (itself the reference
     forward_tranformation, mobile_manipulator.py:17-55) with the sin/cos
     factored out into the carry."""
@@ -185,8 +168,8 @@ def _fk_from_trig(x, tr):
 
 
 def _dyn_tr(x, u, dt, sp, cp):
-    """Tile-component wholebody_step (reference mobile_manipulator.py:57-75)
-    with sin/cos(psi) supplied from the trig carry."""
+    """Per-lane wholebody_step (reference mobile_manipulator.py:57-75) with
+    sin/cos(psi) supplied from the trig carry."""
     px, py, psi, dx, dy, dpsi = x[0], x[1], x[2], x[3], x[4], x[5]
     dV, dw = u[0], u[1]
     return [
@@ -221,273 +204,261 @@ def _selfcol(ee, j2, j3):
     return out
 
 
-def _qform(M_ref, e, n):
-    """e^T M e with M an (n, n) SMEM weight matrix and e a list of tiles."""
+def _qform(M, e, n):
+    """e^T M e with M an (n, n) nested list of scalars and e a list of
+    vectors."""
     acc = None
     for i in range(n):
         row = None
         for j in range(n):
-            t = M_ref[i, j] * e[j]
+            t = M[i][j] * e[j]
             row = t if row is None else row + t
         t = e[i] * row
         acc = t if acc is None else acc + t
     return acc
 
 
+def _hp_group(pts, hp, any_live):
+    """One slack row per sample point: minus the deepest half-plane
+    penetration over the live faces (reference mpc_wholebody_qref.py:57-89)."""
+    out = []
+    for p in pts:
+        dmax = None
+        for (n0, n1, n2, o0, o1, o2, m) in hp:
+            d = n0 * (o0 - p[0]) + n1 * (o1 - p[1]) + n2 * (o2 - p[2])
+            d = jnp.where(m > 0, d, _NEG_BIG)
+            dmax = d if dmax is None else jnp.maximum(dmax, d)
+        out.append(jnp.where(any_live > 0, -dmax, _NEG_BIG))
+    return out
+
+
+def _sample_points(ee, j2, j3):
+    return (
+        [j2[c] * 0.5 for c in range(3)],
+        j2,
+        [(j2[c] + j3[c]) * 0.5 for c in range(3)],
+        j3,
+        [(j3[c] + ee[c]) * 0.5 for c in range(3)],
+        ee,
+    )
+
+
+def _phr(rows, lam, mu):
+    """Sum of PHR terms (max(lam + mu c, 0)^2 - lam^2) over the rows.
+
+    Masked (infinite-bound) rows have c = None: the solver's penalty
+    (al_ilqr._al_penalty_ineq) still subtracts their lam^2, so it is
+    reproduced exactly."""
+    pen = None
+    for r, c in rows:
+        if c is None:
+            term = -lam[r] * lam[r]
+        else:
+            t = jnp.maximum(lam[r] + mu * c, 0.0)
+            term = t * t - lam[r] * lam[r]
+        pen = term if pen is None else pen + term
+    return pen
+
+
+# --------------------------------------------------------------------------
+# the kernel
+# --------------------------------------------------------------------------
+
 def _kernel(mu_ref, S_ref, Q_ref, R_ref, W_ref, P_ref, eqm_ref,
             xref_ref, xreft_ref, uref_ref,
             ulast_ref, obs_ref, obst_ref, hpo_ref, hpn_ref, hpm_ref,
             X_in, U_in, kff_in, K_in, lam_in, lamt_in, lame_in,
-            Xc_out, Uc_out, xlast_out, cc_out,
-            x_s, fk_s, cost_s, *,
+            Xc_out, Uc_out, xlast_out, cc_out, *,
             nx, nu, N, n_alpha, alphas, dt, inv_scale, base_radius,
             n_obs, n_hp, bug_compat, moving, x_bounds, du_bounds, u_clamp,
             ps_ulast, ps_xref, ps_qp, ps_eqm, ps_uref):
-    g = pl.program_id(1)
-    mu = mu_ref[0, 0]
-    inv2mu = 0.5 / mu          # scalar: one divide instead of a tile divide
-    S = S_ref[0, 0]
-
-    def ld(ref, n):
-        arr = ref[0][..., 0, :, :]
-        return [arr[i] for i in range(n)]
-
-    def ld_b(ref, n):
-        # per-batch-block operand with no stage axis (bspec lead)
-        arr = ref[...][..., 0, :, :]
-        return [arr[i] for i in range(n)]
-
-    Xk = ld(X_in, nx)
-    Uk = ld(U_in, nu)
-    kffk = ld(kff_in, nu)
-    Kk = K_in[0][..., 0, :, :]          # (nu, nx, SUB, LANE)
-    lam = ld(lam_in, 2 * nx + 2 * nu)
-    # per-scenario U_last (fleet serving: each robot's previous command
-    # sequence) arrives as a VMEM tile block; shared U_last as SMEM scalars
-    ul = ld(ulast_ref, nu) if ps_ulast else \
-        [ulast_ref[g, i] for i in range(nu)]
-    # per-scenario references / weights (fleet task serving: each robot's
-    # phase owns its reference window + weight-table row + equality mask);
-    # per-scenario Q/P are DIAGONALS (the wrapper extracts them — the task
-    # weight tables are diagonal, and a diagonal keeps the tracking cost at
-    # nx tiles instead of nx^2)
-    xr_k = ld(xref_ref, nx) if ps_xref else \
-        [xref_ref[g, i] for i in range(nx)]
-    ur_k = ld(uref_ref, nu) if ps_uref else \
-        [uref_ref[g, i] for i in range(nu)]
-    qd = ld_b(Q_ref, nx) if ps_qp else None
-    pd = ld_b(P_ref, nx) if ps_qp else None
-    eqm_t = eqm_ref[0] if ps_eqm else eqm_ref[0, 0]
-    xr_N = (ld_b(xreft_ref, nx) if ps_xref
-            else [xref_ref[N, i] for i in range(nx)])
-
+    mu = mu_ref[0]
+    inv2mu = 0.5 / mu          # scalar: one divide instead of a vector one
+    S = S_ref[0]
     x_lo, x_hi, x_mlo, x_mhi = x_bounds
     du_lo, du_hi, du_mlo, du_mhi = du_bounds
     u_lo, u_hi = u_clamp
 
-    @pl.when(g == 0)
-    def _():
-        tr0 = _trig_full(Xk)     # the only full sin/cos of the rollout
-        for a in range(n_alpha):
-            for i in range(nx):
-                x_s[a, i] = Xk[i]
-            for c in range(8):
-                fk_s[a, c] = tr0[c]
-            cost_s[a] = jnp.zeros((SUB, LANE), jnp.float32)
-
-    # scalar half-plane liveness (same for every stage)
-    any_live = hpm_ref[0, 0]
+    # per-scenario Q/P are DIAGONALS (the wrapper extracts them — the task
+    # weight tables are diagonal, and a diagonal keeps the tracking cost at
+    # nx products instead of nx^2)
+    qd = [Q_ref[i, :] for i in range(nx)] if ps_qp else None
+    pd = [P_ref[i, :] for i in range(nx)] if ps_qp else None
+    Qm = None if ps_qp else [[Q_ref[i, j] for j in range(nx)]
+                             for i in range(nx)]
+    Pm = None if ps_qp else [[P_ref[i, j] for j in range(nx)]
+                             for i in range(nx)]
+    Rm = [[R_ref[i, j] for j in range(nu)] for i in range(nu)]
+    Wm = [[W_ref[i, j] for j in range(nu)] for i in range(nu)]
+    eqm_t = eqm_ref[:] if ps_eqm else eqm_ref[0]
+    xr_N = ([xreft_ref[i, :] for i in range(nx)] if ps_xref
+            else [xref_ref[N, i] for i in range(nx)])
+    hp = [(hpn_ref[f, 0], hpn_ref[f, 1], hpn_ref[f, 2],
+           hpo_ref[f, 0], hpo_ref[f, 1], hpo_ref[f, 2], hpm_ref[f])
+          for f in range(n_hp)]
+    any_live = hp[0][6]
     for f in range(1, n_hp):
-        any_live = any_live + hpm_ref[f, 0]
+        any_live = any_live + hp[f][6]
 
-    for a in range(n_alpha):
-        x = [x_s[a, i] for i in range(nx)]
-        tr = [fk_s[a, c] for c in range(8)]
-        ee, j2, j3 = _fk_from_trig(x, tr)
+    x_init = [X_in[0, i, :] for i in range(nx)]
+    tr0 = _trig_full(x_init)     # the only full sin/cos of the rollout
+    zero = jnp.zeros_like(x_init[0])
 
-        # -- control: feedforward + feedback, clamped to ulim ------------
-        u = []
-        for i in range(nu):
-            acc = Uk[i] + alphas[a] * kffk[i]
-            for j in range(nx):
-                acc = acc + Kk[i, j] * (x[j] - Xk[j])
-            if math.isfinite(u_lo[i]):
-                acc = jnp.maximum(acc, u_lo[i])
-            if math.isfinite(u_hi[i]):
-                acc = jnp.minimum(acc, u_hi[i])
-            u.append(acc)
-
-        # -- dynamics + advanced trig (reused as next stage's trig) ------
-        xn = _dyn_tr(x, u, dt, tr[6], tr[7])
-        trn = _trig_advance(tr, x, u, dt)
-        een, j2n, j3n = _fk_from_trig(xn, trn)
-
-        # -- slack constraint group (ground + self-collision + hp union) -
-        gs = []
-        for o in range(n_obs):
-            if moving:
-                ox, oy, orad = (obs_ref[g, o, 0], obs_ref[g, o, 1],
-                                obs_ref[g, o, 2])
-            else:
-                ox, oy, orad = obs_ref[o, 0], obs_ref[o, 1], obs_ref[o, 2]
-            dx0 = x[0] - ox
-            dy0 = x[1] - oy
-            gs.append((orad + base_radius)
-                      - jnp.sqrt(dx0 * dx0 + dy0 * dy0 + _EPS))
-        gs += _selfcol(ee, j2, j3)
-        pts = (
-            [j2[c] * 0.5 for c in range(3)],
-            j2,
-            [(j2[c] + j3[c]) * 0.5 for c in range(3)],
-            j3,
-            [(j3[c] + ee[c]) * 0.5 for c in range(3)],
-            ee,
-        )
-        for p in pts:
-            dmax = None
-            for f in range(n_hp):
-                d = None
-                for c in range(3):
-                    t = hpn_ref[f, c] * (hpo_ref[f, c] - p[c])
-                    d = t if d is None else d + t
-                d = jnp.where(hpm_ref[f, 0] > 0, d, _NEG_BIG)
-                dmax = d if dmax is None else jnp.maximum(dmax, d)
-            gs.append(jnp.where(any_live > 0, -dmax, _NEG_BIG))
-        if bug_compat:
-            # terminal self-collision rides stage N-1's slack group
-            # (reference mpc_wholebody_qref.py:263-265 stale-index bug)
-            pred = g == N - 1
-            gs += [jnp.where(pred, t, _NEG_BIG)
-                   for t in _selfcol(een, j2n, j3n)]
-        gmax = gs[0]
-        for t in gs[1:]:
-            gmax = jnp.maximum(gmax, t)
-        smax = jnp.maximum(gmax, 0.0)
-
-        # -- quadratic tracking costs ------------------------------------
-        ex = [x[i] - xr_k[i] for i in range(nx)]
-        eu = [u[i] - ur_k[i] for i in range(nu)]
-        edu = [u[i] - ul[i] for i in range(nu)]
-        if ps_qp:
-            track = None
-            for i in range(nx):
-                t = qd[i] * ex[i] * ex[i]
-                track = t if track is None else track + t
+    def stage(k, carry):
+        xs, trs, costs = carry
+        Xk = [X_in[k, i, :] for i in range(nx)]
+        Uk = [U_in[k, i, :] for i in range(nu)]
+        kffk = [kff_in[k, i, :] for i in range(nu)]
+        Kk = [[K_in[k, i, j, :] for j in range(nx)] for i in range(nu)]
+        lam = [lam_in[k, r, :] for r in range(2 * nx + 2 * nu)]
+        # per-scenario U_last (fleet serving: each robot's previous command
+        # sequence) and references are lane vectors; shared ones scalars
+        ul = [ulast_ref[k, i, :] if ps_ulast else ulast_ref[k, i]
+              for i in range(nu)]
+        xr_k = [xref_ref[k, i, :] if ps_xref else xref_ref[k, i]
+                for i in range(nx)]
+        ur_k = [uref_ref[k, i, :] if ps_uref else uref_ref[k, i]
+                for i in range(nu)]
+        if moving:
+            obs = [(obs_ref[k, o, 0], obs_ref[k, o, 1], obs_ref[k, o, 2])
+                   for o in range(n_obs)]
         else:
-            track = _qform(Q_ref, ex, nx)
-        track = track + _qform(R_ref, eu, nu) + _qform(W_ref, edu, nu)
+            obs = [(obs_ref[o, 0], obs_ref[o, 1], obs_ref[o, 2])
+                   for o in range(n_obs)]
 
-        # -- PHR penalty on the box constraints (static rows unrolled).
-        # Masked (infinite-bound) rows have c = -1e9, so t = 0 — but the
-        # PHR formula still subtracts their lam^2 (al_ilqr._al_penalty_ineq
-        # sums over all rows); the solver keeps those multipliers at 0, but
-        # we reproduce the formula exactly.
-        pen = None
+        new_xs, new_trs, new_costs = [], [], []
+        for a in range(n_alpha):
+            x, tr = xs[a], trs[a]
+            ee, j2, j3 = _fk_from_trig(x, tr)
+
+            # -- control: feedforward + feedback, clamped to ulim ---------
+            u = []
+            for i in range(nu):
+                acc = Uk[i] + alphas[a] * kffk[i]
+                for j in range(nx):
+                    acc = acc + Kk[i][j] * (x[j] - Xk[j])
+                if math.isfinite(u_lo[i]):
+                    acc = jnp.maximum(acc, u_lo[i])
+                if math.isfinite(u_hi[i]):
+                    acc = jnp.minimum(acc, u_hi[i])
+                u.append(acc)
+
+            # -- dynamics + advanced trig (reused as next stage's trig) ---
+            xn = _dyn_tr(x, u, dt, tr[6], tr[7])
+            trn = _trig_advance(tr, x, u, dt)
+
+            # -- slack group (ground + self-collision + hp union) ---------
+            gs = []
+            for ox, oy, orad in obs:
+                dx0 = x[0] - ox
+                dy0 = x[1] - oy
+                gs.append((orad + base_radius)
+                          - jnp.sqrt(dx0 * dx0 + dy0 * dy0 + _EPS))
+            gs += _selfcol(ee, j2, j3)
+            gs += _hp_group(_sample_points(ee, j2, j3), hp, any_live)
+            if bug_compat:
+                # terminal self-collision rides stage N-1's slack group
+                # (reference mpc_wholebody_qref.py:263-265 stale-index bug)
+                een, j2n, j3n = _fk_from_trig(xn, trn)
+                last = k == N - 1
+                gs += [jnp.where(last, t, _NEG_BIG)
+                       for t in _selfcol(een, j2n, j3n)]
+            gmax = gs[0]
+            for t in gs[1:]:
+                gmax = jnp.maximum(gmax, t)
+            smax = jnp.maximum(gmax, 0.0)
+
+            # -- quadratic tracking costs ---------------------------------
+            ex = [x[i] - xr_k[i] for i in range(nx)]
+            eu = [u[i] - ur_k[i] for i in range(nu)]
+            edu = [u[i] - ul[i] for i in range(nu)]
+            if ps_qp:
+                track = None
+                for i in range(nx):
+                    t = qd[i] * ex[i] * ex[i]
+                    track = t if track is None else track + t
+            else:
+                track = _qform(Qm, ex, nx)
+            track = track + _qform(Rm, eu, nu) + _qform(Wm, edu, nu)
+
+            # -- PHR penalty on the box constraints (static rows) ---------
+            rows = []
+            for i in range(nx):
+                rows.append((i, (x[i] - x_hi[i]) if x_mhi[i] else None))
+            for i in range(nx):
+                rows.append((nx + i, (x_lo[i] - x[i]) if x_mlo[i] else None))
+            for i in range(nu):
+                rows.append((2 * nx + i,
+                             (edu[i] - du_hi[i]) if du_mhi[i] else None))
+            for i in range(nu):
+                rows.append((2 * nx + nu + i,
+                             (du_lo[i] - edu[i]) if du_mlo[i] else None))
+            stage_c = inv_scale * (track + S * smax * smax)
+            stage_c = stage_c + _phr(rows, lam, mu) * inv2mu
+
+            for i in range(nx):
+                Xc_out[k, a, i, :] = x[i]
+            for i in range(nu):
+                Uc_out[k, a, i, :] = u[i]
+            new_xs.append(xn)
+            new_trs.append(trn)
+            new_costs.append(costs[a] + stage_c)
+        return new_xs, new_trs, new_costs
+
+    init = ([list(x_init) for _ in range(n_alpha)],
+            [list(tr0) for _ in range(n_alpha)],
+            [zero for _ in range(n_alpha)])
+    xs, trs, costs = jax.lax.fori_loop(0, N, stage, init)
+
+    # ---- terminal AL cost (replicates al_ilqr.al_terminal: P-tracking +
+    # S*relu_max(terminal slack groups)^2 + PHR on the terminal state boxes
+    # + the maskable position equality)
+    obs_t = [(obst_ref[o, 0], obst_ref[o, 1], obst_ref[o, 2])
+             for o in range(n_obs)]
+    lam_t = [lamt_in[i, :] for i in range(2 * nx)]
+    lam_e = [lame_in[i, :] for i in range(2)]
+    for a in range(n_alpha):
+        xn, trn = xs[a], trs[a]
+        een, j2n, j3n = _fk_from_trig(xn, trn)
+        exN = [xn[i] - xr_N[i] for i in range(nx)]
+        if ps_qp:
+            trackN = None
+            for i in range(nx):
+                t = pd[i] * exN[i] * exN[i]
+                trackN = t if trackN is None else trackN + t
+        else:
+            trackN = _qform(Pm, exN, nx)
+
+        gsN = []
+        for ox, oy, orad in obs_t:
+            dx0 = xn[0] - ox
+            dy0 = xn[1] - oy
+            gsN.append((orad + base_radius)
+                       - jnp.sqrt(dx0 * dx0 + dy0 * dy0 + _EPS))
+        gsN += _hp_group(_sample_points(een, j2n, j3n), hp, any_live)
+        if not bug_compat:
+            gsN += _selfcol(een, j2n, j3n)
+        gmaxN = gsN[0]
+        for t in gsN[1:]:
+            gmaxN = jnp.maximum(gmaxN, t)
+        smaxN = jnp.maximum(gmaxN, 0.0)
+
         rows = []
         for i in range(nx):
-            rows.append((i, (x[i] - x_hi[i]) if x_mhi[i] else None))
+            rows.append((i, (xn[i] - x_hi[i]) if x_mhi[i] else None))
+            rows.append((nx + i, (x_lo[i] - xn[i]) if x_mlo[i] else None))
+        penN = _phr(rows, lam_t, mu)
+
+        peneq = zero
+        for i in range(2):
+            h = eqm_t * (xn[i] - xr_N[i])
+            peneq = peneq + lam_e[i] * h + 0.5 * mu * h * h
+
+        cterm = (costs[a] + inv_scale * (trackN + S * smaxN * smaxN)
+                 + penN * inv2mu + peneq)
         for i in range(nx):
-            rows.append((nx + i, (x_lo[i] - x[i]) if x_mlo[i] else None))
-        for i in range(nu):
-            rows.append((2 * nx + i,
-                         (edu[i] - du_hi[i]) if du_mhi[i] else None))
-        for i in range(nu):
-            rows.append((2 * nx + nu + i,
-                         (du_lo[i] - edu[i]) if du_mlo[i] else None))
-        for r, c in rows:
-            if c is None:
-                term = -lam[r] * lam[r]
-            else:
-                t = jnp.maximum(lam[r] + mu * c, 0.0)
-                term = t * t - lam[r] * lam[r]
-            pen = term if pen is None else pen + term
-        stage = inv_scale * (track + S * smax * smax)
-        if pen is not None:
-            stage = stage + pen * inv2mu
-        cost_s[a] = cost_s[a] + stage
-
-        # -- outputs + carry ---------------------------------------------
-        for i in range(nx):
-            Xc_out[0, a, i, 0] = x[i]
-        for i in range(nu):
-            Uc_out[0, a, i, 0] = u[i]
-        for i in range(nx):
-            x_s[a, i] = xn[i]
-        for c in range(8):
-            fk_s[a, c] = trn[c]
-
-        @pl.when(g == N - 1)
-        def _():
-            # ---- terminal AL cost, fused (replicates al_ilqr.al_terminal:
-            # P-tracking + S*relu_max(terminal slack groups)^2 + PHR on the
-            # terminal state boxes + the maskable position equality).  The
-            # FK of xn is already in registers — no extra horizon pass.
-            exN = [xn[i] - xr_N[i] for i in range(nx)]
-            if ps_qp:
-                trackN = None
-                for i in range(nx):
-                    t = pd[i] * exN[i] * exN[i]
-                    trackN = t if trackN is None else trackN + t
-            else:
-                trackN = _qform(P_ref, exN, nx)
-
-            gsN = []
-            for o in range(n_obs):
-                ox, oy, orad = (obst_ref[o, 0], obst_ref[o, 1],
-                                obst_ref[o, 2])
-                dx0 = xn[0] - ox
-                dy0 = xn[1] - oy
-                gsN.append((orad + base_radius)
-                           - jnp.sqrt(dx0 * dx0 + dy0 * dy0 + _EPS))
-            ptsN = (
-                [j2n[c] * 0.5 for c in range(3)],
-                j2n,
-                [(j2n[c] + j3n[c]) * 0.5 for c in range(3)],
-                j3n,
-                [(j3n[c] + een[c]) * 0.5 for c in range(3)],
-                een,
-            )
-            for p in ptsN:
-                dmax = None
-                for f in range(n_hp):
-                    d = None
-                    for c in range(3):
-                        t = hpn_ref[f, c] * (hpo_ref[f, c] - p[c])
-                        d = t if d is None else d + t
-                    d = jnp.where(hpm_ref[f, 0] > 0, d, _NEG_BIG)
-                    dmax = d if dmax is None else jnp.maximum(dmax, d)
-                gsN.append(jnp.where(any_live > 0, -dmax, _NEG_BIG))
-            if not bug_compat:
-                gsN += _selfcol(een, j2n, j3n)
-            gmaxN = gsN[0]
-            for t in gsN[1:]:
-                gmaxN = jnp.maximum(gmaxN, t)
-            smaxN = jnp.maximum(gmaxN, 0.0)
-
-            lam_t = [lamt_in[i, 0] for i in range(2 * nx)]
-            penN = None
-            for i in range(nx):
-                for r, c in ((i, (xn[i] - x_hi[i]) if x_mhi[i] else None),
-                             (nx + i,
-                              (x_lo[i] - xn[i]) if x_mlo[i] else None)):
-                    if c is None:
-                        term = -lam_t[r] * lam_t[r]
-                    else:
-                        t = jnp.maximum(lam_t[r] + mu * c, 0.0)
-                        term = t * t - lam_t[r] * lam_t[r]
-                    penN = term if penN is None else penN + term
-
-            lam_e = [lame_in[i, 0] for i in range(2)]
-            peneq = jnp.zeros((SUB, LANE), jnp.float32)
-            for i in range(2):
-                h = eqm_t * (xn[i] - xr_N[i])
-                peneq = peneq + lam_e[i] * h + 0.5 * mu * h * h
-
-            cterm = (cost_s[a] + inv_scale * (trackN + S * smaxN * smaxN)
-                     + penN * inv2mu + peneq)
-            for i in range(nx):
-                xlast_out[a, i, 0] = xn[i]
-            cc_out[a, 0] = cterm
+            xlast_out[a, i, :] = xn[i]
+        cc_out[a, :] = cterm
 
 
 def make_fwd_linesearch(*, nx, nu, N, dt, base_radius, n_obs, n_hp,
@@ -503,9 +474,10 @@ def make_fwd_linesearch(*, nx, nu, N, dt, base_radius, n_obs, n_hp,
             -> (Xc (N, n_alpha, nx, B), Uc (N, n_alpha, nu, B),
                 xlast (n_alpha, nx, B), cc (n_alpha, B))
 
-    with all arrays batch-minor and B % 1024 == 0.  cc INCLUDES the terminal
-    AL cost (fwd.includes_terminal == True); lamt_bm (2*nx, B) and
-    lame_bm (2, B) are the terminal box / equality multipliers.
+    with all arrays batch-minor and any batch B (padded to ``BLOCK`` inside).
+    cc INCLUDES the terminal AL cost; lamt_bm (2*nx, B) and lame_bm (2, B)
+    are the terminal box / equality multipliers.  ``interpret`` runs the
+    kernel through the Pallas interpreter (CPU tests).
     """
     n_alpha = len(alphas)
     nc = 2 * nx + 2 * nu
@@ -518,8 +490,65 @@ def make_fwd_linesearch(*, nx, nu, N, dt, base_radius, n_obs, n_hp,
     u_clamp = tuple(tuple(float(v) for v in b) for b in u_clamp)
     alphas = tuple(float(a) for a in alphas)
 
-    def build_kernel(ps_ulast, ps_xref, ps_qp, ps_eqm, ps_uref):
-        return functools.partial(
+    def fwd(X_bm, U_bm, kff_bm, K_bm, lam_bm, lamt_bm, lame_bm, mu, params):
+        assert X_bm.shape[:-1] == (N, nx) and lam_bm.shape[1] == nc
+        B = X_bm.shape[-1]
+        Bp = -(-B // BLOCK) * BLOCK
+        # A per-scenario params entry carries a trailing batch axis (fleet
+        # task serving: each robot's phase owns its reference window,
+        # weight-table row and equality mask — solver/batched.py::
+        # _per_scenario_keys).  Per-scenario Q/P must be DIAGONAL: only
+        # their diagonals reach the kernel.  Unused operands are dummies.
+        p = {k: jnp.asarray(params[k], f32)
+             for k in ("Q", "P", "R", "W", "S", "X_ref", "U_ref", "U_last",
+                       "eq_mask", "obstacles")}
+        ps_ulast = p["U_last"].ndim == 3          # (N, nu, B)
+        ps_xref = p["X_ref"].ndim == 3            # (N+1, nx, B)
+        ps_qp = p["Q"].ndim == 3                  # (nx, nx, B)
+        ps_eqm = p["eq_mask"].ndim == 1           # (B,)
+        ps_uref = p["U_ref"].ndim == 3            # (N, nu, B)
+        Q, P = p["Q"], p["P"]
+        if ps_qp:
+            Q = jnp.diagonal(Q, axis1=0, axis2=1).T      # (nx, B)
+            P = jnp.diagonal(P, axis1=0, axis2=1).T
+        X_ref, X_ref_term = p["X_ref"], jnp.zeros((1,), f32)
+        if ps_xref:
+            X_ref, X_ref_term = X_ref[:N], X_ref[N]
+        obs = obs_t = p["obstacles"]
+        if n_obs == 0:
+            obs_t = jnp.zeros((1, 3), f32)
+            obs = jnp.zeros((N, 1, 3) if moving else (1, 3), f32)
+        elif moving:
+            obs_t, obs = obs[N], obs[:N]
+        hp_o = jnp.asarray(params["hp_points"] - OBSTACLE_EXPAND_DIST
+                           * params["hp_normals"], f32)
+
+        # (operand, whether it carries the batch as its last axis)
+        operands = [
+            (jnp.asarray(mu, f32).reshape(1), False),
+            (p["S"].reshape(1), False),
+            (Q, ps_qp), (p["R"], False), (p["W"], False), (P, ps_qp),
+            (p["eq_mask"] if ps_eqm else p["eq_mask"].reshape(1), ps_eqm),
+            (X_ref, ps_xref), (X_ref_term, ps_xref),
+            (p["U_ref"], ps_uref), (p["U_last"], ps_ulast),
+            (obs, False), (obs_t, False), (hp_o, False),
+            (jnp.asarray(params["hp_normals"], f32), False),
+            (jnp.asarray(params["hp_mask"], f32).reshape(n_hp), False),
+            (X_bm, True), (U_bm, True), (kff_bm, True), (K_bm, True),
+            (lam_bm, True), (lamt_bm, True), (lame_bm, True),
+        ]
+        args = [_pad_lanes(a.astype(f32), Bp) if b else a
+                for a, b in operands]
+        in_specs = [_lanes_spec(a.shape[:-1]) if b
+                    else _whole_spec(a.shape)
+                    for a, (_, b) in zip(args, operands)]
+        out_shape = [
+            jax.ShapeDtypeStruct((N, n_alpha, nx, Bp), f32),
+            jax.ShapeDtypeStruct((N, n_alpha, nu, Bp), f32),
+            jax.ShapeDtypeStruct((n_alpha, nx, Bp), f32),
+            jax.ShapeDtypeStruct((n_alpha, Bp), f32),
+        ]
+        kernel = functools.partial(
             _kernel, nx=nx, nu=nu, N=N, n_alpha=n_alpha, alphas=alphas,
             dt=float(dt), inv_scale=float(inv_scale),
             base_radius=float(base_radius), n_obs=n_obs, n_hp=n_hp,
@@ -527,153 +556,13 @@ def make_fwd_linesearch(*, nx, nu, N, dt, base_radius, n_obs, n_hp,
             x_bounds=x_bounds, du_bounds=du_bounds, u_clamp=u_clamp,
             ps_ulast=ps_ulast, ps_xref=ps_xref, ps_qp=ps_qp,
             ps_eqm=ps_eqm, ps_uref=ps_uref)
-
-    def smem(shape):
-        # whole-array SMEM blocks (TPU lowering requires block == array for
-        # sub-(8,128) shapes); per-stage rows are read with the grid index
-        return pl.BlockSpec(shape, lambda b, g: (0,) * len(shape),
-                            memory_space=pltpu.SMEM)
-
-    def vspec(trail):
-        blk = (1,) + trail + (1, SUB, LANE)
-
-        def imap(b, g):
-            return (g,) + (0,) * len(trail) + (b, 0, 0)
-
-        return pl.BlockSpec(blk, imap, memory_space=pltpu.VMEM)
-
-    def ospec_term(lead):
-        blk = lead + (1, SUB, LANE)
-
-        def imap(b, g):
-            return (0,) * len(lead) + (b, 0, 0)
-
-        return pl.BlockSpec(blk, imap, memory_space=pltpu.VMEM)
-
-    def fwd(X_bm, U_bm, kff_bm, K_bm, lam_bm, lamt_bm, lame_bm, mu, params):
-        Bsz = X_bm.shape[-1]
-        assert Bsz % LANES == 0, f"batch {Bsz} must be a multiple of {LANES}"
-        nb = Bsz // LANES
-
-        def tile(a):
-            a = a.astype(f32)
-            return a.reshape(a.shape[:-1] + (nb, SUB, LANE))
-
-        mu2 = jnp.asarray(mu, f32).reshape(1, 1)
-        S2 = jnp.asarray(params["S"], f32).reshape(1, 1)
-        Q = jnp.asarray(params["Q"], f32)
-        R = jnp.asarray(params["R"], f32)
-        W = jnp.asarray(params["W"], f32)
-        P = jnp.asarray(params["P"], f32)
-        X_ref = jnp.asarray(params["X_ref"], f32)
-        U_ref = jnp.asarray(params["U_ref"], f32)
-        U_last = jnp.asarray(params["U_last"], f32)
-        ps_ulast = U_last.ndim == 3          # (N, nu, B) batch-minor
-        # fleet task serving: per-scenario references / weights / equality
-        # mask (batch-minor trailing axis).  Per-scenario Q/P must be
-        # DIAGONAL — the kernel consumes only the diagonals.
-        ps_xref = X_ref.ndim == 3            # (N+1, nx, B)
-        ps_qp = Q.ndim == 3                  # (nx, nx, B)
-        ps_eqm = jnp.ndim(params["eq_mask"]) == 1    # (B,)
-        ps_uref = U_ref.ndim == 3            # (N, nu, B)
-        eqm = (jnp.asarray(params["eq_mask"], f32) if ps_eqm
-               else jnp.asarray(params["eq_mask"], f32).reshape(1, 1))
-        if ps_qp:
-            Q = jnp.diagonal(Q, axis1=0, axis2=1).T      # (nx, B)
-            P = jnp.diagonal(P, axis1=0, axis2=1).T
-        if ps_xref:
-            X_ref, X_ref_term = X_ref[:N], X_ref[N]
-        else:
-            X_ref_term = jnp.zeros((1, 1), f32)          # unused dummy
-        obs = jnp.asarray(params["obstacles"], f32)
-        if n_obs == 0:
-            obs_t = jnp.zeros((1, 3), f32)
-            obs = jnp.zeros((N, 1, 3) if moving else (1, 3), f32)
-        elif moving:
-            obs_t = obs[N]
-            obs = obs[:N]
-        else:
-            obs_t = obs
-        hp_o = jnp.asarray(
-            params["hp_points"]
-            - OBSTACLE_EXPAND_DIST * params["hp_normals"], f32)
-        hp_n = jnp.asarray(params["hp_normals"], f32)
-        hp_m = jnp.asarray(params["hp_mask"], f32).reshape(n_hp, 1)
-
-        def bspec(lead):
-            # per-batch-block input with no stage axis (multipliers)
-            blk = lead + (1, SUB, LANE)
-
-            def imap(b, g):
-                return (0,) * len(lead) + (b, 0, 0)
-
-            return pl.BlockSpec(blk, imap, memory_space=pltpu.VMEM)
-
-        in_specs = [
-            smem((1, 1)), smem((1, 1)),                      # mu, S
-            (bspec((nx,)) if ps_qp else smem((nx, nx))),     # Q (diag if ps)
-            smem((nu, nu)), smem((nu, nu)),                  # R, W
-            (bspec((nx,)) if ps_qp else smem((nx, nx))),     # P (diag if ps)
-            (bspec(()) if ps_eqm else smem((1, 1))),         # eq_mask
-            (vspec((nx,)) if ps_xref else smem((N + 1, nx))),  # X_ref
-            (bspec((nx,)) if ps_xref else smem((1, 1))),     # X_ref terminal
-            (vspec((nu,)) if ps_uref else smem((N, nu))),    # U_ref
-            (vspec((nu,)) if ps_ulast else smem((N, nu))),   # U_last
-            (smem((N, max(n_obs, 1), 3)) if moving
-             else smem((max(n_obs, 1), 3))),
-            smem((max(n_obs, 1), 3)),                        # obs terminal
-            smem((n_hp, 3)), smem((n_hp, 3)), smem((n_hp, 1)),
-            vspec((nx,)), vspec((nu,)), vspec((nu,)),        # X, U, kff
-            vspec((nu, nx)),                                 # K
-            vspec((nc,)),                                    # lam
-            bspec((2 * nx,)),                                # lam_term
-            bspec((2,)),                                     # lam_eq
-        ]
-        out_specs = [
-            pl.BlockSpec((1, n_alpha, nx, 1, SUB, LANE),
-                         lambda b, g: (g, 0, 0, b, 0, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((1, n_alpha, nu, 1, SUB, LANE),
-                         lambda b, g: (g, 0, 0, b, 0, 0),
-                         memory_space=pltpu.VMEM),
-            ospec_term((n_alpha, nx)),
-            ospec_term((n_alpha,)),
-        ]
-        out_shape = [
-            jax.ShapeDtypeStruct((N, n_alpha, nx, nb, SUB, LANE), f32),
-            jax.ShapeDtypeStruct((N, n_alpha, nu, nb, SUB, LANE), f32),
-            jax.ShapeDtypeStruct((n_alpha, nx, nb, SUB, LANE), f32),
-            jax.ShapeDtypeStruct((n_alpha, nb, SUB, LANE), f32),
-        ]
-
         Xc, Uc, xlast, cc = pl.pallas_call(
-            build_kernel(ps_ulast, ps_xref, ps_qp, ps_eqm, ps_uref),
-            grid=(nb, N),
-            in_specs=in_specs,
-            out_specs=out_specs,
-            out_shape=out_shape,
-            scratch_shapes=[
-                pltpu.VMEM((n_alpha, nx, SUB, LANE), f32),
-                pltpu.VMEM((n_alpha, 8, SUB, LANE), f32),   # trig carry
-                pltpu.VMEM((n_alpha, SUB, LANE), f32),
-            ],
-            compiler_params=pltpu.CompilerParams(
-                dimension_semantics=("arbitrary", "arbitrary")),
-            interpret=interpret or INTERPRET,
-        )(mu2, S2, tile(Q) if ps_qp else Q, R, W,
-          tile(P) if ps_qp else P, tile(eqm) if ps_eqm else eqm,
-          tile(X_ref) if ps_xref else X_ref,
-          tile(X_ref_term) if ps_xref else X_ref_term,
-          tile(U_ref) if ps_uref else U_ref,
-          tile(U_last) if ps_ulast else U_last, obs, obs_t,
-          hp_o, hp_n, hp_m,
-          tile(X_bm), tile(U_bm), tile(kff_bm), tile(K_bm), tile(lam_bm),
-          tile(lamt_bm), tile(lame_bm))
+            kernel, grid=(Bp // BLOCK,), in_specs=in_specs,
+            out_specs=[_lanes_spec(o.shape[:-1]) for o in out_shape],
+            out_shape=out_shape, backend="triton", name="wholebody_fwd",
+            compiler_params=plt.CompilerParams(num_warps=NUM_WARPS,
+                                               num_stages=1),
+            interpret=interpret)(*args)
+        return Xc[..., :B], Uc[..., :B], xlast[..., :B], cc[..., :B]
 
-        return (Xc.reshape(N, n_alpha, nx, Bsz),
-                Uc.reshape(N, n_alpha, nu, Bsz),
-                xlast.reshape(n_alpha, nx, Bsz),
-                cc.reshape(n_alpha, Bsz))
-
-    fwd.includes_terminal = True
     return fwd

@@ -1,11 +1,11 @@
 """Scaling layer: vmap within a chip, shard_map across the device mesh.
 
 The reference is a single-process synchronous loop — one IPOPT solve per
-control tick (SURVEY.md §2.3).  The TPU-native scaling unit is the *solve*:
+control tick (SURVEY.md §2.3).  Here the scaling unit is the *solve*:
 thousands of scenarios (initial states x obstacle layouts x references) are
 vmapped into one compiled program per chip and sharded across chips over a
 1-D ``("data",)`` mesh.  Cross-chip aggregates (throughput counts,
-constraint-violation maxima, convergence fractions) ride ICI collectives
+constraint-violation maxima, convergence fractions) are collectives
 (psum/pmax) inside the same compiled program, so multi-host benchmarking
 needs no host-side gather.
 
@@ -27,7 +27,7 @@ from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
 
 class BatchStats(NamedTuple):
-    """Mesh-global batch statistics, reduced over ICI."""
+    """Mesh-global batch statistics, reduced over the mesh."""
     n_solved: jnp.ndarray          # total solves in the global batch
     n_converged: jnp.ndarray       # solves meeting the constraint tolerance
     max_violation: jnp.ndarray     # worst hard-constraint violation anywhere
@@ -67,7 +67,7 @@ def batched_solve_fn(solve_fn):
 
 def controller_batched_fn(controller):
     """Batched (x0_b, U0_b, params) -> (results, stats) for a controller,
-    via the natively-batched solver (Pallas Riccati path on TPU)."""
+    via the natively-batched solver (fused kernels on the GPU)."""
     return _with_stats(controller.batch_solve_fn())
 
 
@@ -118,9 +118,8 @@ def sharded_solve_fn(solve_fn, mesh: Mesh, axis_name: str = "data",
 
     The per-chip shard runs the batched solve (``batch_impl`` — e.g. a
     controller's ``batch_solve_fn()`` with the Pallas Riccati kernel — or a
-    vmap of ``solve_fn``); BatchStats are reduced with psum/pmax over ICI
-    inside the compiled program.  Batch size must divide by the mesh size
-    (and per-shard batch should be a multiple of 1024 for the kernel path).
+    vmap of ``solve_fn``); BatchStats are reduced with psum/pmax over the mesh
+    inside the compiled program.  Batch size must divide by the mesh size.
     Returns a jitted callable (x0_b, U0_b, params) ->
     (SolveResult sharded over batch, BatchStats replicated).
     """

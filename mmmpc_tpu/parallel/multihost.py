@@ -1,10 +1,9 @@
 """Multi-host (multi-process) scaling scaffolding.
 
-SURVEY.md §2.3 / BASELINE.md north star: ≥80% scaling efficiency from one
-chip to one host to ≥2 hosts.  Within a host/slice the data mesh rides ICI
+Within a host the data mesh spans the local cards
 (parallel/data_parallel.py); across hosts JAX runs one *process per host*,
-each seeing only its local devices, with collectives riding DCN between
-slices.  This module adds the three pieces a multi-process deployment needs
+each seeing only its local devices, with collectives crossing the network
+between hosts.  This module adds the three pieces a multi-process deployment needs
 on top of ``sharded_solve_fn``:
 
 1. ``init_distributed`` — process bootstrap (jax.distributed.initialize),
@@ -24,7 +23,7 @@ anywhere):
 
 The solve program itself is unchanged: ``sharded_solve_fn`` over the global
 mesh — XLA partitions the batch per device, and the BatchStats psum/pmax
-reductions cross hosts over DCN inside the compiled program (no host-side
+reductions cross hosts over the network inside the compiled program (no host-side
 gather anywhere).
 """
 
@@ -44,8 +43,8 @@ def init_distributed(coordinator_address: str | None = None,
 
     Resolution order: explicit args, then JAX_COORDINATOR /
     JAX_NUM_PROCESSES / JAX_PROCESS_ID env vars, then standard cluster
-    auto-detection (jax.distributed.initialize() with no args works on
-    Cloud TPU pods).  Returns True if distributed mode was initialized,
+    auto-detection (jax.distributed.initialize() with no args, where the
+    cluster environment tells JAX its layout).  Returns True if distributed mode was initialized,
     False for the single-process fallback (so callers can share one code
     path between laptop runs and pod runs).
     """
@@ -70,7 +69,7 @@ def global_data_mesh(axis_name: str = "data") -> Mesh:
 
     Identical to make_mesh() in single-process mode; in multi-process mode
     jax.devices() spans all hosts, so the mesh (and the collectives compiled
-    against it) crosses DCN.
+    against it) crosses the network.
     """
     return Mesh(np.asarray(jax.devices()).reshape(-1), (axis_name,))
 

@@ -82,12 +82,12 @@ def make_batch_closed_loop(ocp, cfg: SolverConfig, shared_params,
         def tick(carry, _):
             x_b, U_b, lam_b = carry
             # per-robot reference windows (vmapped nearest-point search),
-            # then ONE batched solve with per-robot params — on TPU with
-            # B % 1024 == 0 this rides both fused Pallas lanes kernels
-            # (X_ref / U_ref / U_last as batch-minor VMEM operands);
-            # al_ilqr_solve_batched's vmap fallback computes the identical
-            # per-robot solves elsewhere (and resolves use_assoc_scan with
-            # the true fleet width)
+            # then ONE batched solve with per-robot params — on the GPU
+            # the forward pass runs as the fused kernel
+            # (ops/wholebody_fwd.py, X_ref / U_ref / U_last as batch-minor
+            # lane operands) and the backward as the vmapped XLA expansion
+            # plus backward_scan; al_ilqr_solve_batched's vmap path
+            # computes the same per-robot solves elsewhere
             X_ref_b, U_ref_b = jax.vmap(
                 lambda t, u, x: _local_window(t, u, x, dist_idx, N))(
                     traj_ref_b, u_ref_b, x_b)

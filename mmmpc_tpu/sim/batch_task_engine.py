@@ -104,24 +104,25 @@ def make_batch_task_loop(ocp, cfg: SolverConfig, shared_params,
     difference.
     """
     if host_parity_solver:
-        # Pin the solver to the vmapped per-scenario path (no Pallas
+        # Pin the solver to the vmapped per-scenario path (no fused
         # kernels).  The task FSM's rotate-exit gates (1 cm / 0.5 deg,
         # reference interface:192-197) sit on a knife edge relative to the
         # solver's float32 lowering: the lanes kernels and the vmapped path
         # are equally-valid f32 solvers whose iterates diverge in the
         # near-infeasible rotate-equality regime, and parity-mode fleet
-        # completion lands at a measurably different point (89.55% vmapped
-        # vs 70.5% lanes at the 6x12 budget; recovery mode retires the
+        # completion lands at a different point (recovery mode retires the
         # difference — see BASELINE.md).  Use this flag when reproducing
         # the host Interface's completion regime matters more than tick
-        # cost (~10x slower).
+        # cost.
         import dataclasses
-        cfg = dataclasses.replace(cfg, use_pallas_riccati=False)
+        cfg = dataclasses.replace(cfg, use_kernels=False)
     N = ocp.N
     nx, nu = ocp.nx, ocp.nu
     T_move = int(round(t_move / dt))
     T_man = int(round(t_manipulate / dt))
-    Wtab = jnp.asarray(_W_TABLE)
+    # float32 where it is made: under x64 a float64 table would promote
+    # the whole fleet solve
+    Wtab = jnp.asarray(_W_TABLE, jnp.float32)
     ks_traj = jnp.arange(N + 1)
     ks_u = jnp.arange(N)
 
@@ -185,7 +186,7 @@ def make_batch_task_loop(ocp, cfg: SolverConfig, shared_params,
         x_goal = jnp.concatenate([x[:6], q_goal])
         traj_new = (x[None, :]
                     + (x_goal - x)[None, :]
-                    * jnp.linspace(0.0, 1.0, T_man + 1)[:, None])
+                    * jnp.linspace(0.0, 1.0, T_man + 1, dtype=x.dtype)[:, None])
         traj_man = jnp.where(to_manip, traj_new, traj_man)
 
         ee = wholebody_fk(x)[0][:3]
@@ -275,7 +276,7 @@ def make_batch_task_loop(ocp, cfg: SolverConfig, shared_params,
         B = x_start_b.shape[0]
         dtype = x_start_b.dtype
         x_target_b = stand_off_target(x_start_b, global_pose_target_b)
-        steps = jnp.linspace(0.0, 1.0, T_move + 1)[:, None]
+        steps = jnp.linspace(0.0, 1.0, T_move + 1, dtype=dtype)[:, None]
         traj_move_b = (x_start_b[:, None, :]
                        + (x_target_b - x_start_b)[:, None, :] * steps[None])
 
@@ -316,13 +317,12 @@ def make_batch_task_loop(ocp, cfg: SolverConfig, shared_params,
                 x_b, phase_b, traj_move_b, man_b, global_pose_target_b,
                 x_target_b, aux_b)
             # 2) ONE batched solve for the whole fleet with per-robot params
-            # (batch-minor trailing axis).  On TPU with B % 1024 == 0 this
-            # rides BOTH fused Pallas lanes kernels (the per-robot X_ref /
-            # Q / P / eq_mask / U_last arrive as VMEM operands,
-            # ops/wholebody_{fwd,bwd}.py) — measured ~30x cheaper per
-            # robot-tick than the vmapped per-scenario solve this replaces;
-            # elsewhere al_ilqr_solve_batched's vmap fallback computes the
-            # identical per-robot solves.
+            # (batch-minor trailing axis).  On the GPU the forward pass runs
+            # as the fused kernel (ops/wholebody_fwd.py; the per-robot X_ref
+            # / Q / P / eq_mask / U_last arrive as lane operands) and the
+            # backward as the vmapped XLA expansion plus backward_scan;
+            # elsewhere al_ilqr_solve_batched's vmap path computes the same
+            # per-robot solves.
             params_b = dict(
                 shared_params,
                 X_ref=jnp.moveaxis(X_ref_b, 0, -1),       # (N+1, nx, B)

@@ -3,7 +3,7 @@
 The reference simulates through PyBullet via urdfenvs
 (/root/reference/simulation/albert_robot.py): a velocity-controlled
 diff-drive Albert robot stepped at sim_dt = 0.01 with 10 sim steps per
-control step.  PyBullet is host-side C++ and not TPU-portable; the TPU-native
+control step.  PyBullet is host-side C++ and cannot run on the device; this
 plant is a pure-JAX velocity-driven unicycle + joint integrator that
 reproduces the *interface contract* of the reference adapter:
 

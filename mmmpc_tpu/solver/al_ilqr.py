@@ -1,4 +1,4 @@
-"""Augmented-Lagrangian iLQR — the TPU-native replacement for IPOPT.
+"""Augmented-Lagrangian iLQR — the on-device replacement for IPOPT.
 
 Where the reference hands one NLP per control tick to IPOPT's interior-point
 loop (C++, host-side, ~316 variables, mpc_wholebody_qref.py:314-317), this
@@ -20,9 +20,8 @@ solver runs entirely on-device with fixed shapes and fixed iteration counts:
 Two entry points:
 - ``al_ilqr_solve``        one scenario; jit/vmap-safe (closed-loop control);
 - ``al_ilqr_solve_batched``  (solver/batched.py) the high-throughput path:
-  batch-major arrays, the backward sweep runs as the Pallas batch-on-lanes
-  Riccati kernel (mmmpc_tpu/ops/riccati.py) — the lax.scan backward pass
-  measured 12 ms/sweep at batch 1024 on v5e against 0.05 ms for the kernel.
+  a batch of scenarios in one program, through fused Pallas kernels on the
+  GPU where the OCP provides them.
 
 Numerical notes: objective scaling (cfg.cost_scale) keeps the reference's
 ~1e5-magnitude costs inside float32 mantissa; the unrolled tiny-Cholesky
@@ -84,50 +83,26 @@ def _al_penalty_eq(h, lam, mu):
     return jnp.sum(lam * h) + 0.5 * mu * jnp.sum(h * h)
 
 
-# Measured assoc-scan crossover on the v5e (BASELINE.md long-horizon table):
-# the parallel-prefix factorization only beats the sequential scan when the
-# backward sweep is latency-bound — small batch, long horizon.
-ASSOC_SCAN_MAX_BATCH = 8
-ASSOC_SCAN_MIN_HORIZON = 100
+def resolve_assoc_scan(cfg: SolverConfig) -> bool:
+    """Decide scan vs associative-scan backward sweep.
 
-
-def resolve_assoc_scan(cfg: SolverConfig, batch: int, N: int,
-                       warn: bool = True) -> bool:
-    """Decide scan vs associative-scan backward sweep for a (batch, N) shape.
-
-    ``cfg.use_assoc_scan`` semantics: "auto" picks from the measured
-    crossover (assoc iff batch <= 8 and N >= 100); True forces assoc but
-    warns in the known-bad quadrant (10-40x slower than the scan at fleet
-    batch sizes, BASELINE.md); False forces the sequential scan.  Any other
-    string is an error (a typo like "Auto" must not silently force assoc).
-
-    Entry points resolve with the real batch size and ``warn=True``;
-    ``build_core`` re-resolves with its batch *hint* and ``warn=False`` so a
-    forced-True config warns exactly once, with the true batch in the label.
+    ``cfg.use_assoc_scan``: True forces the associative scan, False the
+    sequential scan.  "auto" is the sequential scan: the parallel-prefix
+    factorization can only win where the sweep is latency-bound (small
+    batch, long horizon), and that crossover has not been measured on the
+    GPU (scripts/bench_longhorizon.py measures it).  Any other string is an
+    error (a typo like "Auto" must not silently pick a path).
     """
     mode = cfg.use_assoc_scan
     if isinstance(mode, str) and mode != "auto":
         raise ValueError(
             f"use_assoc_scan={mode!r}: expected True, False, or 'auto'")
-    in_sweet_spot = (batch <= ASSOC_SCAN_MAX_BATCH
-                     and N >= ASSOC_SCAN_MIN_HORIZON)
-    if mode == "auto":
-        return in_sweet_spot
-    if warn and mode and not in_sweet_spot:
-        import warnings
-        warnings.warn(
-            f"use_assoc_scan=True at batch={batch}, N={N}: the associative-"
-            f"scan Riccati is only faster when batch <= "
-            f"{ASSOC_SCAN_MAX_BATCH} and N >= {ASSOC_SCAN_MIN_HORIZON} "
-            f"(measured 10-40x slower otherwise, see BASELINE.md); use "
-            f'"auto" to select per shape.', UserWarning, stacklevel=2)
-    return bool(mode)
+    return mode is True
 
 
-def build_core(ocp: OCP, params, cfg: SolverConfig, dtype, batch_hint=1):
+def build_core(ocp: OCP, params, cfg: SolverConfig, dtype):
     """Per-scenario solver building blocks shared by the single-scenario and
-    batched entry points.  ``batch_hint`` feeds the scan-vs-assoc-scan
-    auto-selection (the per-scenario core can't see the batch itself)."""
+    batched entry points."""
     nx, nu, N = ocp.nx, ocp.nu, ocp.N
 
     nc = jax.eval_shape(ocp.stage_ineq, jnp.zeros(nx, dtype),
@@ -374,7 +349,7 @@ def build_core(ocp: OCP, params, cfg: SolverConfig, dtype, batch_hint=1):
         stage_derivs=stage_derivs, terminal_derivs=terminal_derivs,
         fwd_pass=fwd_pass,
         backward_scan=(backward_assoc
-                       if resolve_assoc_scan(cfg, batch_hint, N, warn=False)
+                       if resolve_assoc_scan(cfg)
                        else backward_scan),
         eval_constraints=eval_constraints, violation=violation, mu_at=mu_at)
 
@@ -414,7 +389,7 @@ def shift_multipliers(lam_stage, lam_term, lam_eq, decay: float = 0.5):
     the geometric decay makes the cross-tick dual loop a leaky integrator
     whose steady state still pins the active constraints (measured: exact
     0.0 steady-state violation at the 3x(6,4) RT budget vs ~4e-3 for
-    primal-only warm starts).  The TPU analogue of carrying IPOPT's duals
+    primal-only warm starts).  The analogue of carrying IPOPT's duals
     between ticks — the reference cold-starts its duals every tick
     (mpc_wholebody_qref.py:295-304 warm-starts primal U only)."""
     axis = lam_stage.ndim - 2 if lam_stage.ndim >= 2 else 0
@@ -426,35 +401,25 @@ def shift_multipliers(lam_stage, lam_term, lam_eq, decay: float = 0.5):
 
 def al_ilqr_solve(ocp: OCP, x0, U_init, params,
                   cfg: SolverConfig = SolverConfig(),
-                  lam0=None, batch_hint: int = 1) -> SolveResult:
+                  lam0=None) -> SolveResult:
     """Solve the OCP from initial state x0 with warm-start inputs U_init.
 
     lam0: optional (lam_stage (N, nc), lam_term (nct,), lam_eq (ne,)) warm
     start for the AL multipliers (e.g. the previous tick's SolveResult fields
     through ``shift_multipliers``).  Zeros when None (cold start).
 
-    batch_hint: the surrounding vmap width, if any.  A caller that vmaps this
-    per-scenario solve over a fleet MUST pass its batch here so
-    ``use_assoc_scan="auto"`` sees the true shape — with the default hint of
-    1, a long-horizon fleet rollout would silently select the associative-
-    scan factorization in exactly the 10-40x-slower quadrant the auto mode
-    exists to avoid (BASELINE.md long-horizon table).
     """
-    # TPU MXU matmuls default to bfloat16 multiplies; at the solver's 9x9
-    # scale that costs nothing to raise and silently breaks closed-loop
-    # regulation if left low (see SolverConfig.matmul_precision).
+    # a float32 product may run in reduced precision (TF32 on the GPU); at
+    # the solver's 9x9 scale full precision costs little and reduced
+    # precision breaks closed-loop regulation (SolverConfig.matmul_precision)
     with jax.default_matmul_precision(cfg.matmul_precision):
-        return _al_ilqr_solve_body(ocp, x0, U_init, params, cfg, lam0,
-                                   batch_hint)
+        return _al_ilqr_solve_body(ocp, x0, U_init, params, cfg, lam0)
 
 
 def _al_ilqr_solve_body(ocp: OCP, x0, U_init, params, cfg: SolverConfig,
-                        lam0, batch_hint: int = 1) -> SolveResult:
-    # warn (once, with the true batch) on a forced-True assoc config in the
-    # known-bad quadrant; build_core itself re-resolves silently
-    resolve_assoc_scan(cfg, batch_hint, ocp.N, warn=True)
+                        lam0) -> SolveResult:
     dtype = jnp.result_type(x0)
-    core = build_core(ocp, params, cfg, dtype, batch_hint=batch_hint)
+    core = build_core(ocp, params, cfg, dtype)
     N, nc, nct, ne = core.N, core.nc, core.nct, core.ne
 
     def ilqr_iter(carry, lams_mu):

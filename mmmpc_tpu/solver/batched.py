@@ -1,20 +1,18 @@
 """Natively-batched AL-iLQR — the high-throughput path.
 
-Same algorithm as al_ilqr_solve but with the batch as a whole-array axis
-throughout, so the hot loop can run as Pallas batch-on-lanes kernels:
+Same algorithm as al_ilqr_solve with the batch as a whole-array axis.  Two
+paths, chosen from what the code can observe:
 
-- **lanes path** (fastest; requires the OCP to provide a fused forward
-  line-search kernel via ``lanes_fwd_factory``): the entire inner loop is
-  *batch-minor* — every array carries the batch as its LAST axis, which is
-  exactly the (nb, 8, 128) tile layout the kernels consume, so the backward
-  Riccati sweep (ops/riccati.py) and the fused rollout + line search
-  (ops/wholebody_fwd.py) run with zero layout transposes; the stage-derivative
-  assembly is the same per-scenario code vmapped with in/out_axes=-1 (XLA
-  vectorizes over the minor batch axis).
-- **batch-major kernel path**: the Riccati sweep runs as the Pallas kernel
-  behind layout transposes; the line search stays a vmapped lax.scan.
-- **fallback**: plain vmap(al_ilqr_solve) when no kernel is applicable
-  (batch not a multiple of 1024, or disabled / CPU).
+- **lanes path** (GPU, when the OCP provides a fused forward kernel via
+  ``lanes_fwd_factory``): the inner loop is *batch-minor* — every array
+  carries the batch as its LAST axis, the layout the kernel reads with
+  contiguous loads — and the forward rollout + line search of an iLQR
+  iteration is one kernel launch (ops/wholebody_fwd.py).  The backward half
+  (AL expansion + Riccati sweep) is the same vmapped XLA code the vmap path
+  runs.
+- **vmap path**: ``vmap(al_ilqr_solve)`` everywhere else — CPU, OCPs
+  without kernels, per-scenario params the kernels do not read, or
+  ``SolverConfig.use_kernels=False``.
 """
 
 from __future__ import annotations
@@ -27,6 +25,7 @@ from mmmpc_tpu.solver.al_ilqr import (
     SolveResult, _al_penalty_eq, _al_penalty_ineq, _objective,
     al_ilqr_solve, build_core, rollout, run_al_rounds,
 )
+from mmmpc_tpu.utils.configs import SolverConfig
 
 
 def _params_axes(params, batched_keys):
@@ -45,22 +44,23 @@ def _per_scenario_keys(params):
     instead of a scalar.
     """
     keys = set()
-    if jnp.ndim(params.get("U_last", 0)) == 3:
-        keys.add("U_last")
-    if jnp.ndim(params.get("X_ref", 0)) == 3:
-        keys.add("X_ref")
-    if jnp.ndim(params.get("U_ref", 0)) == 3:
-        keys.add("U_ref")
-    for k in ("Q", "P"):
+    for k in ("U_last", "X_ref", "U_ref", "Q", "P"):
         if jnp.ndim(params.get(k, 0)) == 3:
             keys.add(k)
     if jnp.ndim(params.get("eq_mask", 0)) == 1:
         keys.add("eq_mask")
     return keys
-from mmmpc_tpu.utils.configs import SolverConfig
-from mmmpc_tpu.ops.riccati import (
-    LANES, riccati_backward, riccati_backward_bm,
-)
+
+
+def kernel_path_applies(ocp: OCP, cfg: SolverConfig, params,
+                        platform: str) -> bool:
+    """Whether a batched solve on ``platform`` (``jax.default_backend()``)
+    runs the fused kernel: only on the GPU, only for an OCP that provides
+    one, and only when every per-scenario params entry is one the kernel
+    reads per lane."""
+    return (platform == "gpu" and cfg.use_kernels
+            and ocp.lanes_fwd_factory is not None
+            and _per_scenario_keys(params) <= ocp.lanes_per_scenario_keys)
 
 
 def al_ilqr_solve_batched(ocp: OCP, x0_b, U0_b, params,
@@ -73,143 +73,35 @@ def al_ilqr_solve_batched(ocp: OCP, x0_b, U0_b, params,
     the previous tick's SolveResult fields.  Returns a SolveResult with a
     leading batch axis on every field.
     """
-    # same precision guard as al_ilqr_solve (the vmap fallback inherits it
-    # from there; this covers the kernel paths' surrounding jnp algebra)
-    with jax.default_matmul_precision(cfg.matmul_precision):
-        return _al_ilqr_solve_batched_body(ocp, x0_b, U0_b, params, cfg,
-                                           lam0_b)
-
-
-def _al_ilqr_solve_batched_body(ocp: OCP, x0_b, U0_b, params,
-                                cfg: SolverConfig, lam0_b) -> SolveResult:
-    import dataclasses
-
-    from mmmpc_tpu.solver.al_ilqr import resolve_assoc_scan
-
-    B = x0_b.shape[0]
-    # Resolve the scan-vs-assoc-scan choice HERE, where the batch is known:
-    # the vmapped per-scenario core below can't see B, and "auto" must not
-    # pick the assoc factorization for fleet batches (10-40x slower there,
-    # BASELINE.md long-horizon table).
-    cfg = dataclasses.replace(
-        cfg, use_assoc_scan=resolve_assoc_scan(cfg, B, ocp.N))
-    use_kernel = (cfg.use_pallas_riccati and B % LANES == 0
-                  and (jax.default_backend() != "cpu" or cfg.force_kernel))
-    ps_keys = _per_scenario_keys(params)
-    use_lanes = (use_kernel and cfg.use_pallas_linesearch
-                 and ocp.lanes_fwd_factory is not None)
-    if ps_keys:
-        # per-scenario params ride the lanes path only when BOTH fused
-        # kernels read the batched arrays directly (ocp flags); kernels
-        # that read them from shared SMEM (the generic_fwd/generic_bwd
-        # controllers) would silently use one scenario's values
-        supported = ocp.lanes_per_scenario_keys | (
-            {"U_last"} if ocp.lanes_per_scenario_u_last else set())
-        use_lanes = (use_lanes and cfg.use_fused_backward
-                     and ocp.lanes_bwd_factory is not None
-                     and ps_keys <= supported)
-    if not use_kernel or (ps_keys and not use_lanes):
-        # vmap fallback; per-scenario params entries map on their trailing
-        # (batch-minor) axis
-        p_axes = _params_axes(params, ps_keys)
-        if lam0_b is None:
-            return jax.vmap(
-                lambda x0, U0, p: al_ilqr_solve(ocp, x0, U0, p, cfg),
-                in_axes=(0, 0, p_axes))(x0_b, U0_b, params)
-        return jax.vmap(
-            lambda x0, U0, ls, lt, le, p: al_ilqr_solve(
-                ocp, x0, U0, p, cfg, lam0=(ls, lt, le)),
-            in_axes=(0, 0, 0, 0, 0, p_axes))(
-                x0_b, U0_b, *lam0_b, params)
-    if use_lanes:
-        return _solve_batched_lanes(ocp, x0_b, U0_b, params, cfg, lam0_b)
-
-    dtype = jnp.result_type(x0_b)
-    core = build_core(ocp, params, cfg, dtype)
-    N, nc, nct, ne = core.N, core.nc, core.nct, core.ne
-
-    rollout_b = jax.vmap(lambda x0, U: rollout(ocp, x0, U, params))
-    al_total_b = jax.vmap(core.al_total, in_axes=(0, 0, 0, None))
-    derivs_b = jax.vmap(jax.vmap(core.stage_derivs,
-                                 in_axes=(0, 0, 0, 0, None)),
-                        in_axes=(0, 0, None, 0, None))
-    term_derivs_b = jax.vmap(core.terminal_derivs,
-                             in_axes=(0, 0, 0, None))
-    fwd_b = jax.vmap(core.fwd_pass,
-                     in_axes=(0, 0, 0, 0, 0, None, 0, None))
-    eval_con_b = jax.vmap(core.eval_constraints)
-    viol_b = jax.vmap(core.violation)
-
-    def ilqr_iter(carry, lams_mu):
-        X, U, cost, reg = carry           # X (B,N+1,nx), cost (B,), reg (B,)
-        lams, mu = lams_mu
-
-        derivs = derivs_b(X[:, :-1], U, core.ks, lams[0], mu)
-        term_g, term_H = term_derivs_b(X[:, -1], lams[1], lams[2], mu)
-        kffs, Ks = riccati_backward(*derivs, term_g, term_H, reg)
-        kffs = kffs.astype(dtype)
-        Ks = Ks.astype(dtype)
-
-        alphas = cfg.alpha_decay ** jnp.arange(cfg.n_alpha, dtype=dtype)
-        Xc, Uc, cc = jax.vmap(
-            lambda a: fwd_b(X[:, 0], X, U, kffs, Ks, a, lams, mu))(alphas)
-        # Xc: (n_alpha, B, N+1, nx); cc: (n_alpha, B)
-        best = jnp.argmin(cc, axis=0)                       # (B,)
-        best_cost = jnp.take_along_axis(cc, best[None], axis=0)[0]
-        bsel = best[:, None, None]
-        X_best = jnp.take_along_axis(
-            jnp.moveaxis(Xc, 0, 1), bsel[..., None], axis=1)[:, 0]
-        U_best = jnp.take_along_axis(
-            jnp.moveaxis(Uc, 0, 1), bsel[..., None], axis=1)[:, 0]
-
-        improved = best_cost < cost - 1e-12                 # (B,)
-        X_new = jnp.where(improved[:, None, None], X_best, X)
-        U_new = jnp.where(improved[:, None, None], U_best, U)
-        cost_new = jnp.where(improved, best_cost, cost)
-        reg_new = jnp.where(improved,
-                            jnp.maximum(reg / cfg.reg_scale, cfg.reg_init),
-                            jnp.minimum(reg * cfg.reg_scale, cfg.reg_max))
-        return (X_new, U_new, cost_new, reg_new), None
-
-    def al_round(carry, i, inner_iters):
-        # X already corresponds to U applied open-loop from x0 — only the
-        # AL cost is re-based under the new (lams, mu); no re-rollout.
-        X, U, lam_stage, lam_term, lam_eq, _ = carry
-        mu = core.mu_at(i)
-        lams = (lam_stage, lam_term, lam_eq)
-        cost0 = al_total_b(X, U, lams, mu)
-        init = (X, U, cost0, jnp.full((B,), cfg.reg_init, dtype))
-        (X, U_new, _, _), _ = jax.lax.scan(
-            lambda c, _: ilqr_iter(c, (lams, mu)), init, None,
-            length=inner_iters)
-        cs, ct, he = eval_con_b(X, U_new)
-        lam_stage = jnp.maximum(0.0, lam_stage + mu * cs)
-        lam_term = jnp.maximum(0.0, lam_term + mu * ct)
-        lam_eq = lam_eq + mu * he
-        viol = viol_b(cs, ct, he)
-        return (X, U_new, lam_stage, lam_term, lam_eq, viol), None
-
+    if kernel_path_applies(ocp, cfg, params, jax.default_backend()):
+        return solve_batched_lanes(ocp, x0_b, U0_b, params, cfg, lam0_b)
+    # per-scenario params entries map on their trailing (batch-minor) axis
+    p_axes = _params_axes(params, _per_scenario_keys(params))
     if lam0_b is None:
-        lam0_b = (jnp.zeros((B, N, nc), dtype), jnp.zeros((B, nct), dtype),
-                  jnp.zeros((B, ne), dtype))
-    X0_b, Uc0_b = rollout_b(x0_b, jnp.asarray(U0_b, dtype))
-    carry0 = (X0_b, Uc0_b,
-              jnp.asarray(lam0_b[0], dtype), jnp.asarray(lam0_b[1], dtype),
-              jnp.asarray(lam0_b[2], dtype),
-              jnp.full((B,), jnp.inf, dtype))
-    X_fin, U_fin, lam_stage, lam_term, lam_eq, viol = run_al_rounds(
-        al_round, carry0, cfg)
-
-    cost = jax.vmap(lambda X, U: _objective(ocp, X, U, params))(X_fin, U_fin)
-    return SolveResult(
-        X=X_fin, U=U_fin, cost=cost, max_violation=viol,
-        lam_stage=lam_stage, lam_term=lam_term, lam_eq=lam_eq,
-        converged=viol < cfg.constraint_tol)
+        return jax.vmap(
+            lambda x0, U0, p: al_ilqr_solve(ocp, x0, U0, p, cfg),
+            in_axes=(0, 0, p_axes))(x0_b, U0_b, params)
+    return jax.vmap(
+        lambda x0, U0, ls, lt, le, p: al_ilqr_solve(
+            ocp, x0, U0, p, cfg, lam0=(ls, lt, le)),
+        in_axes=(0, 0, 0, 0, 0, p_axes))(x0_b, U0_b, *lam0_b, params)
 
 
-def _solve_batched_lanes(ocp: OCP, x0_b, U0_b, params,
-                         cfg: SolverConfig, lam0_b=None) -> SolveResult:
-    """Batch-minor inner loop with both Pallas kernels (see module doc)."""
+def solve_batched_lanes(ocp: OCP, x0_b, U0_b, params,
+                        cfg: SolverConfig = SolverConfig(), lam0_b=None,
+                        interpret: bool = False) -> SolveResult:
+    """The lanes path (see module doc), same contract as
+    al_ilqr_solve_batched.  ``interpret`` runs the kernel through the
+    Pallas interpreter, which is how CPU tests drive this path."""
+    # the surrounding jnp algebra (candidate selection included) runs at
+    # the same precision as al_ilqr_solve
+    with jax.default_matmul_precision(cfg.matmul_precision):
+        return _solve_batched_lanes(ocp, x0_b, U0_b, params, cfg, lam0_b,
+                                    interpret)
+
+
+def _solve_batched_lanes(ocp: OCP, x0_b, U0_b, params, cfg: SolverConfig,
+                         lam0_b, interpret) -> SolveResult:
     B = x0_b.shape[0]
     dtype = jnp.result_type(x0_b)
     ps_keys = _per_scenario_keys(params)
@@ -221,8 +113,7 @@ def _solve_batched_lanes(ocp: OCP, x0_b, U0_b, params,
                              **{k: params[k][..., 0] for k in ps_keys}))
     core = build_core(ocp, core_params, cfg, dtype)
     N, nc, nct, ne = core.N, core.nc, core.nct, core.ne
-    fwd_ls = ocp.lanes_fwd_factory(cfg)
-    fwd_has_terminal = getattr(fwd_ls, "includes_terminal", False)
+    fwd_ls = ocp.lanes_fwd_factory(cfg, interpret)
     alphas_idx = jnp.arange(cfg.n_alpha)
     inv_scale = 1.0 / cfg.cost_scale
     ks = jnp.arange(N)
@@ -261,16 +152,6 @@ def _solve_batched_lanes(ocp: OCP, x0_b, U0_b, params,
     else:
         al_total_bm = jax.vmap(core.al_total,
                                in_axes=(-1, -1, (-1, -1, -1), None))
-    derivs_bm = jax.vmap(
-        jax.vmap(core.stage_derivs, in_axes=(0, 0, 0, 0, None)),
-        in_axes=(-1, -1, None, -1, None), out_axes=-1)
-    term_derivs_bm = jax.vmap(core.terminal_derivs,
-                              in_axes=(-1, -1, -1, None), out_axes=-1)
-    # terminal AL cost of the line-search candidates: (n_alpha, nx, B) ->
-    # (n_alpha, B); the multipliers are shared across candidates
-    al_term_bm = jax.vmap(
-        jax.vmap(core.al_terminal, in_axes=(-1, -1, -1, None)),
-        in_axes=(0, None, None, None))
     if ps_keys:
         def eval_con_p(X, U, p):
             cs = (jax.vmap(lambda x, u, k: ocp.stage_ineq(x, u, k, p))(
@@ -291,36 +172,35 @@ def _solve_batched_lanes(ocp: OCP, x0_b, U0_b, params,
                                out_axes=-1)
     viol_bm = jax.vmap(core.violation, in_axes=(-1, -1, -1))
 
-    bwd_fused = (ocp.lanes_bwd_factory(cfg)
-                 if (cfg.use_fused_backward
-                     and ocp.lanes_bwd_factory is not None) else None)
-    assert not ps_keys or (bwd_fused is not None and fwd_has_terminal), (
-        "per-scenario params on the lanes path require both fused kernels "
-        "(they read the batched arrays directly); the vmapped stage-"
-        "derivative path would silently use a single scenario's U_last")
+    p_axes_b = _params_axes(params, ps_keys)
+
+    def backward_one(X, U, lam, lam_t, lam_e, mu, reg, p):
+        """AL expansion + Riccati sweep of one scenario (batch-major)."""
+        c = build_core(ocp, p, cfg, dtype)
+        derivs = jax.vmap(c.stage_derivs, in_axes=(0, 0, 0, 0, None))(
+            X[:-1], U, c.ks, lam, mu)
+        term_g, term_H = c.terminal_derivs(X[-1], lam_t, lam_e, mu)
+        return c.backward_scan(derivs, term_g, term_H, reg)
+
+    backward_b = jax.vmap(backward_one,
+                          in_axes=(0, 0, 0, 0, 0, None, 0, p_axes_b))
+
+    def backward_bm(X, U, lams, mu, reg):
+        # the sweep runs batch-major, as in the vmap path
+        kff, K = backward_b(
+            jnp.transpose(X, (2, 0, 1)), jnp.transpose(U, (2, 0, 1)),
+            jnp.transpose(lams[0], (2, 0, 1)), lams[1].T, lams[2].T, mu,
+            reg, params)
+        return jnp.transpose(kff, (1, 2, 0)), jnp.transpose(K, (1, 2, 3, 0))
 
     def ilqr_iter(carry, lams_mu):
         X, U, cost, reg = carry     # X (N+1,nx,B), U (N,nu,B), cost/reg (B,)
         lams, mu = lams_mu          # lam_stage (N,nc,B), lam_term (nct,B)
 
-        if bwd_fused is not None:
-            kffs, Ks = bwd_fused(X, U, lams[0], lams[1], lams[2], mu, reg,
-                                 params)
-        else:
-            derivs = derivs_bm(X[:-1], U, core.ks, lams[0], mu)
-            term_g, term_H = term_derivs_bm(X[-1], lams[1], lams[2], mu)
-            kffs, Ks = riccati_backward_bm(*derivs, term_g, term_H, reg)
-        kffs = kffs.astype(dtype)
-        Ks = Ks.astype(dtype)
-
-        if fwd_has_terminal:
-            # the kernel already added the terminal AL cost on its last stage
-            Xc, Uc, xlast, cc = fwd_ls(X[:-1], U, kffs, Ks,
-                                       lams[0], lams[1], lams[2], mu, params)
-        else:
-            Xc, Uc, xlast, cc = fwd_ls(X[:-1], U, kffs, Ks, lams[0], mu,
-                                       params)
-            cc = cc + al_term_bm(xlast, lams[1], lams[2], mu)  # (n_alpha, B)
+        kffs, Ks = backward_bm(X, U, lams, mu, reg)
+        # cc includes the terminal AL cost
+        Xc, Uc, xlast, cc = fwd_ls(X[:-1], U, kffs, Ks, lams[0], lams[1],
+                                   lams[2], mu, params)
 
         best = jnp.argmin(cc, axis=0)                        # (B,)
         onehot = (alphas_idx[:, None] == best[None, :]).astype(dtype)

@@ -1,7 +1,7 @@
 """Two-stage straggler refinement — batched solve at a cheap schedule, then
 re-solve only the hardest scenarios warm-started.
 
-Motivation (BASELINE.md round-5 schedule sweep): the 100%-convergence
+Motivation (scripts/sweep_schedule.py): the 100%-convergence
 frontier for a single uniform schedule is 7x(20,12) = 92 iLQR iterations —
 every schedule in the 80-88-iteration range converges 99.84-99.99% of the
 batch and fails on a 0.03-0.16% tail.  Paying 12 extra iterations on ALL
@@ -12,12 +12,11 @@ schedule; stage 2 gathers the ``refine_size`` worst scenarios (by hard-
 constraint violation), re-solves them warm-started from their stage-1
 primal/dual state with the AL penalty schedule CONTINUED where stage 1 left
 off, and scatters back whichever result is better per scenario.  The refine
-batch is a single lane tile (1024) against stage 1's eight, so its
-per-iteration cost is ~1/6 of stage 1's; the merge is violation-monotone by
-construction, so two-stage convergence is >= stage-1 convergence for every
-scenario.
+batch (REFINE_SIZE) is an eighth of the benchmark's stage-1 batch; the merge
+is violation-monotone by construction, so two-stage convergence is >=
+stage-1 convergence for every scenario.
 
-This is the fixed-shape TPU analogue of adaptive per-problem iteration
+This is the fixed-shape analogue of adaptive per-problem iteration
 counts: the reference's IPOPT iterates each NLP until ITS OWN tolerance is
 met (max_iter=2000, /root/reference/controllers/mpc_wholebody_qref.py:280-285);
 a batched fixed-shape solver cannot early-exit per scenario, but it CAN
@@ -33,12 +32,15 @@ import jax
 import jax.numpy as jnp
 
 from mmmpc_tpu.ocp.spec import OCP
-from mmmpc_tpu.ops.riccati import LANES
 from mmmpc_tpu.solver.al_ilqr import SolveResult
 from mmmpc_tpu.solver.batched import (
     _per_scenario_keys, al_ilqr_solve_batched,
 )
 from mmmpc_tpu.utils.configs import SolverConfig
+
+# Scenarios re-solved in stage 2 unless the caller says otherwise: the
+# worst 1024 of the benchmark's 8192 (scripts/sweep_refine.py).
+REFINE_SIZE = 1024
 
 
 def continue_mu(cfg: SolverConfig, al_rounds_done: int,
@@ -69,15 +71,14 @@ def al_ilqr_solve_refined(ocp: OCP, x0_b, U0_b, params,
     refine_size: scenarios re-solved in stage 2 — the ``refine_size`` worst
     by stage-1 violation (top_k; converged scenarios padding the gather are
     harmless — their re-solve keeps them converged and the merge only ever
-    accepts strict improvement).  Defaults to one kernel lane tile (1024)
-    or the whole batch if smaller.  Must be a LANES multiple for the refine
-    solve to stay on the kernel path.
+    accepts strict improvement).  Defaults to REFINE_SIZE or the whole
+    batch if smaller.
 
     Returns a SolveResult shaped exactly like al_ilqr_solve_batched's.
     """
     B = x0_b.shape[0]
     if refine_size is None:
-        refine_size = min(B, LANES)
+        refine_size = min(B, REFINE_SIZE)
     refine_size = min(refine_size, B)
     if refine_cfg is None:
         refine_cfg = default_refine_config(cfg)

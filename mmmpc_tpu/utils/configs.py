@@ -35,8 +35,8 @@ class SolverConfig:
     """Fixed-shape AL-iLQR solver settings (all static under jit).
 
     The reference runs IPOPT with max_iter=2000 / acceptable_tol=1e-8
-    (mpc_wholebody_qref.py:280-285).  On TPU we run a fixed number of
-    augmented-Lagrangian outer rounds, each with a fixed number of iLQR
+    (mpc_wholebody_qref.py:280-285).  On the accelerator we run a fixed
+    number of augmented-Lagrangian outer rounds, each with a fixed number of iLQR
     sweeps, with convergence masking instead of data-dependent exits.
     """
 
@@ -63,50 +63,32 @@ class SolverConfig:
     constraint_tol: float = 1e-5
     # Objective values in the reference formulation reach ~1e5 (slack weight
     # S); dividing the AL objective by this factor keeps value-function
-    # arithmetic within float32 mantissa on TPU.  Solutions are unchanged
+    # arithmetic within float32 mantissa.  Solutions are unchanged
     # (uniform scaling); reported costs are in original units.
     cost_scale: float = 1.0
-    # Run the backward Riccati sweep as the Pallas batch-on-lanes kernel in
-    # the batched solver (requires TPU and batch % 1024 == 0; ~250x faster
-    # than the lax.scan sweep at batch 1024 on v5e).
-    use_pallas_riccati: bool = True
-    # Run the forward rollout + line search as the fused Pallas kernel when
-    # the OCP provides one (requires TPU and batch % 1024 == 0); also moves
-    # the whole batched inner loop to batch-minor layout, eliminating the
-    # tiled-layout transposes around the Riccati kernel.
-    use_pallas_linesearch: bool = True
-    # Run the AL expansion fused into the Riccati backward kernel when the
-    # OCP provides one (lanes path only): per stage the kernel reads just
-    # (x, u, lam) instead of ~291 floats of precomputed expansion blocks.
-    use_fused_backward: bool = True
+    # Run the batched solver's inner loop through the OCP's fused kernels
+    # (solver/batched.py lanes path) where they apply: on the GPU, for an
+    # OCP that provides them.  False pins the plain vmapped XLA path, the
+    # comparison the kernels are kept against.
+    use_kernels: bool = True
     # Unroll factor for the sequential horizon scans (forward line-search
     # rollouts).  The per-step working set is tiny, so the scan is
     # launch/HBM-latency bound; unrolling lets XLA fuse consecutive steps.
     scan_unroll: int = 1
-    # Take the kernel path even on CPU (used with the kernels' interpret
-    # mode to exercise the exact multi-chip shard_map x Pallas configuration
-    # on the virtual device mesh without TPU hardware).
-    force_kernel: bool = False
     # Evaluate the Riccati backward sweep with the associative-scan
     # (parallel-prefix) formulation — O(log N) sequential depth instead of
-    # O(N).  The long-horizon path: measured on the v5e it wins ONLY when
-    # the sweep is latency-bound — batch <= ~8 AND N >= ~100 (2.2-2.3x at
-    # N>=500, scripts/bench_longhorizon.py / BASELINE.md table); at fleet
-    # batch sizes its larger matrix-matrix composition elements are 10-40x
-    # SLOWER than the sequential scan.  Values:
-    #   "auto" (default): pick per (batch, N) from the measured crossover;
-    #   True: force assoc — emits a UserWarning in the known-bad quadrant;
-    #   False: force the sequential scan.
-    # Applies to the scan (non-lanes) solver paths.
+    # O(N), at the price of matrix-matrix composition elements.  Values:
+    #   "auto" (default): the sequential scan until the crossover is
+    #     measured on the GPU (solver/al_ilqr.py::resolve_assoc_scan);
+    #   True: force assoc;  False: force the sequential scan.
+    # Applies to the per-scenario (vmapped) solver path.
     use_assoc_scan: bool | str = "auto"
-    # Matmul precision for the solver's linear algebra.  TPU's MXU defaults
-    # to bfloat16 multiplies, whose 8-bit mantissa is NOT enough for the
-    # Riccati gain algebra: solves still pass a 1e-3 violation tolerance,
-    # but closed-loop position regulation degenerates into a persistent
-    # ~1 m limit cycle around the target (measured: a scenario-1 rotate
-    # phase that settles in ~110 ticks on CPU f32 never settles on TPU
-    # under bf16 matmuls).  These are 9x9/5x5 matrices — full-f32 multiply
-    # costs nothing measurable here, so "highest" is the correct default.
+    # Matmul precision for the solver's linear algebra.  A float32 matrix
+    # product on the GPU may run in TF32 (about three decimal digits),
+    # which is NOT enough for the Riccati gain algebra: solves can still
+    # pass a 1e-3 violation tolerance while closed-loop position regulation
+    # degenerates into a limit cycle around the target.  These are 9x9/5x5
+    # matrices, so full float32 costs little; "highest" is the default.
     matmul_precision: str = "highest"
 
 

@@ -4,7 +4,7 @@ Plays the role the CasADi/IPOPT stack plays for the reference (BASELINE.json:
 "Control sequences must match the reference solver within tolerance").
 CasADi is not available in this image, so the oracle is scipy
 ``trust-constr`` — an interior-point NLP method of the same family as IPOPT —
-applied to the *same* OCP functions the TPU solver consumes, with exact
+applied to the *same* OCP functions the JAX solver consumes, with exact
 JAX-computed gradients/Jacobians.  Agreement between two unrelated solvers on
 the same problem is the fidelity evidence; the formulation itself is tied to
 the reference by construction (see ocp/spec.py and controllers/*).

@@ -1,6 +1,6 @@
 // mmrt — native host-side runtime for the mobile-manipulator MPC framework.
 //
-// The TPU (XLA) owns the compute path: batched AL-iLQR solves.  Around it,
+// The XLA program owns the compute path: batched AL-iLQR solves.  Around it,
 // deployment needs a low-latency host runtime for per-tick orchestration:
 // kinematics queries, the kinematic plant, reference windowing and command
 // integration.  The reference delegates this role to native third-party

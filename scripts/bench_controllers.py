@@ -1,5 +1,5 @@
 """Batched-throughput benchmark for EVERY MPC formulation, not just the
-flagship qref controller (VERDICT r1 weak #5 / next-step #9).
+flagship qref controller.
 
 The qref controller has dedicated fused Pallas kernels; the others run the
 natively-batched scan solver (the vmap/batched path).  This script publishes
@@ -8,7 +8,7 @@ evidenced per formulation (reference controllers/: mpc_demo, mpc_base,
 mpc_manipulator_3DoF, mpc_wholebody, mpc_wholebody_qref + the moving_obs
 branch).
 
-Run on the TPU:  python scripts/bench_controllers.py [batch]
+Run on the GPU:  python scripts/bench_controllers.py [batch]
 """
 
 import json
@@ -153,6 +153,8 @@ def bench_one(name, mpc, x0_b, params, reps=10):
 
 
 def main():
+    from mmmpc_tpu.utils.compile_cache import enable_compile_cache
+    enable_compile_cache()
     batch = int(sys.argv[1]) if len(sys.argv) > 1 else 4096
     print(f"device={jax.devices()[0]} batch={batch} horizon={N} "
           f"schedule={CFG.al_iters}x({CFG.ilqr_iters},{CFG.ilqr_iters_later})",

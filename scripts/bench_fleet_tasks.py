@@ -6,7 +6,7 @@ with one IPOPT solve each (interface_wholebody_qref.py:65-143).  Here the
 whole fleet's task FSMs, solves, IK and plant steps advance together per tick;
 the metric is task completion rate + fleet tick throughput.
 
-Run on the TPU:  python scripts/bench_fleet_tasks.py [batch] [scenario]
+Run on the GPU:  python scripts/bench_fleet_tasks.py [batch] [scenario]
 """
 
 import json
@@ -44,6 +44,8 @@ CHUNK = 40                    # ticks per XLA execution (transport-bounded)
 
 
 def main():
+    from mmmpc_tpu.utils.compile_cache import enable_compile_cache
+    enable_compile_cache()
     # --relax: opt-in straggler recovery (aim-at-button rotate target +
     # 5 cm exit position tolerance; yaw tolerance stays 0.5 deg) for
     # deployments that prefer completion over host-bug parity.  See the
@@ -53,7 +55,7 @@ def main():
     global N_TICKS, CFG
     # --al= / --ilqr= / --ilqr-later=: reduced warm-started budgets (the
     # engine carries primal+dual warm starts across ticks, so most ticks
-    # should not need the cold-start schedule; VERDICT r4 #5 sweep)
+    # should not need the cold-start schedule)
     budget = {}
     for a in sys.argv[1:]:
         if a.startswith("--al="):
@@ -63,10 +65,10 @@ def main():
         elif a.startswith("--ilqr-later="):
             budget["ilqr_iters_later"] = int(a.split("=")[1])
     if "--no-kernel" in sys.argv:
-        # attribution lane: force the vmapped per-scenario solver (the
-        # pre-round-5 engine path) to separate kernel-numerics effects
-        # from engine-logic effects on completion
-        budget["use_pallas_riccati"] = False
+        # attribution lane: force the vmapped per-scenario solver to
+        # separate kernel-numerics effects from engine-logic effects on
+        # completion
+        budget["use_kernels"] = False
     if budget:
         import dataclasses
         CFG = dataclasses.replace(CFG, **budget)
@@ -100,9 +102,8 @@ def main():
     shared = jax.tree.map(lambda a: jnp.asarray(a, jnp.float32), shared)
 
     # Parity mode pins the solver to the host-parity vmapped path by
-    # default (the 89.55%-completion regime BASELINE.md documents; the
-    # lanes kernels land the brittle rotate-exit gates at a different
-    # knife-edge point, ~70.5%).  Recovery mode runs the fast lanes path —
+    # default (the lanes path lands the brittle rotate-exit gates at a
+    # different knife-edge point).  Recovery mode runs the fast lanes path —
     # its re-aim/re-approach machinery retires the gate sensitivity.
     # --lanes forces the fast path in parity mode to measure that trade.
     host_parity = (not relax) and "--lanes" not in sys.argv

@@ -3,10 +3,10 @@
 
 The reference caps its horizon at N=20 (demo_wholebody_qref.py:11); long-
 horizon MPC is a new capability (SURVEY.md par.5 long-context row).  At small
-batch the backward sweep's O(N) sequential depth dominates on TPU — the
+batch the backward sweep's O(N) sequential depth dominates — the
 assoc-scan path trades it for O(log N) depth at O(N) extra flops.
 
-Run on the TPU:  python scripts/bench_longhorizon.py [batch]
+Run on the GPU:  python scripts/bench_longhorizon.py [batch]
 """
 import dataclasses
 import sys
@@ -27,7 +27,7 @@ from mmmpc_tpu.solver.batched import al_ilqr_solve_batched
 
 CFG = SolverConfig(al_iters=2, ilqr_iters=4, ilqr_iters_later=3,
                    cost_scale=1e5, constraint_tol=1e-3, n_alpha=4,
-                   alpha_decay=0.4, use_pallas_riccati=False)
+                   alpha_decay=0.4, use_kernels=False)
 
 
 def build(N, batch):
@@ -62,6 +62,8 @@ def timeit(fn, *args, reps=5):
 
 
 def main():
+    from mmmpc_tpu.utils.compile_cache import enable_compile_cache
+    enable_compile_cache()
     batch = int(sys.argv[1]) if len(sys.argv) > 1 else 64
     print(f"device={jax.devices()[0]} batch={batch} "
           f"iters={CFG.al_iters}x({CFG.ilqr_iters},{CFG.ilqr_iters_later})")

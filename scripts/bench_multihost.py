@@ -6,11 +6,11 @@ Launch (same command on every host, distinct JAX_PROCESS_ID):
         python scripts/bench_multihost.py
 
 Single-process it degenerates to bench.py semantics (same solve program),
-so the scaling-efficiency comparison 1 chip -> 1 host -> >=2 hosts uses one
+so the scaling-efficiency comparison 1 card -> 1 host -> >=2 hosts uses one
 code path.  Each host feeds only its local slice of the global batch
 (parallel/multihost.py::host_local_batch); throughput/convergence stats are
-psum/pmax-reduced inside the compiled program, crossing DCN when the mesh
-does.
+psum/pmax-reduced inside the compiled program, crossing the network when
+the mesh does.
 """
 import json
 import sys
@@ -29,6 +29,8 @@ from mmmpc_tpu.parallel import (
 
 
 def main():
+    from mmmpc_tpu.utils.compile_cache import enable_compile_cache
+    enable_compile_cache()
     distributed = init_distributed()
     mesh = global_data_mesh()
     n_dev = len(jax.devices())

@@ -1,9 +1,9 @@
 """TRUE multi-process validation of the multi-host path (parallel/multihost):
 two OS processes, each owning 4 virtual CPU devices, coordinated by
 jax.distributed — the same bootstrap, global mesh, host-local data feeding and
-in-program psum/pmax reductions a 2-host TPU deployment uses, with the
+in-program psum/pmax reductions a 2-host deployment uses, with the
 cross-process collectives actually executing (over the local gRPC transport
-standing in for DCN).
+standing in for the network between hosts).
 
 Run:  python scripts/dryrun_multiprocess.py          (spawns both workers)
       ... exits 0 and prints PASS if both processes agree with the

@@ -1,4 +1,4 @@
-"""Resolve the two loose FIDELITY rows (VERDICT r3 #4): multi-modality or
+"""Resolve the two loose FIDELITY rows: multi-modality or
 under-convergence?
 
 1. arm-only (per-solve max|dU| 4.8e-2, rel dcost +4.2e-3 vs L-BFGS-B):

@@ -1,6 +1,6 @@
 """CPU fleet-completion diagnostic at small batch: final-phase histogram of
 failures for parity vs recovery configs (used to decompose the straggler
-population without burning TPU time).
+population without spending GPU time).
 
     python scripts/fleet_diag_cpu.py [batch] [--relax]
 """

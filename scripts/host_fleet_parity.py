@@ -1,5 +1,5 @@
 """Host-Interface fleet parity: the distribution-level check behind the
-fleet task engine's completion claim (VERDICT r4 weak #4).
+fleet task engine's completion claim.
 
 Round 4 pinned ONE engine rotate-stall as host-identical
 (tests/test_task_engine.py::test_rotate_stall_host_parity); this script
@@ -12,7 +12,7 @@ scripts/bench_fleet_tasks.py), and reports completion rate + final-flag
 
 Run on CPU:  JAX_PLATFORMS=cpu python scripts/host_fleet_parity.py [K] [scenario]
              [--ticks=400] [--procs=N]
-Emits one JSON line (consumed by BASELINE.md).
+Emits one JSON line.
 """
 
 import json

@@ -1,6 +1,6 @@
 """Real-time receding-horizon latency: warm-started fleet serving.
 
-Measures p50/p99 wall-clock per MPC tick on the TPU, including host round
+Measures p50/p99 wall-clock per MPC tick on the GPU, including host round
 trips, for a TRUE closed-loop: each tick applies u[0] through the model
 plant and re-solves from the advanced state, carrying both primal (shifted
 U) and dual (shifted, decayed multipliers) warm starts — the deployment
@@ -8,10 +8,10 @@ regime of the framework.
 
 Two shapes:
 - single scenario (B=1, pure-JAX scan path) — the classic one-robot loop;
-- batch-1024 lanes path (Pallas kernels) — fleet serving.
+- batch-1024 lanes path (fused forward kernel) — fleet serving.
 
 The RT config (al_iters=3, ilqr_iters=6, later=4) tracks the optimum in a
-handful of sweeps because the duals carry over (BASELINE.md RT rows).
+handful of sweeps because the duals carry over.
 """
 
 import time
@@ -66,6 +66,8 @@ def run_loop(solve, step, x0, U0, params, to_ulast, bootstrap=None):
 
 
 def main():
+    from mmmpc_tpu.utils.compile_cache import enable_compile_cache
+    enable_compile_cache()
     from bench import SOLVER_CFG as FULL_CFG
 
     mpc, x0_b, U0_b, params = build_problem(1024)

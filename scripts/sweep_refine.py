@@ -1,14 +1,14 @@
 """Two-stage (cheap schedule + straggler refinement) sweep.
 
-The round-5 single-schedule sweep (sweep_schedule.py / BASELINE.md) showed
+The single-schedule sweep (sweep_schedule.py) showed
 the 100%-convergence frontier at 92 iterations: every 80-88-iteration
 schedule converges all but a 0.03-0.16% tail.  solver/refine.py re-solves
-only that tail (one lane tile, warm-started, mu continued) and merges back
+only that tail (warm-started, mu continued) and merges back
 violation-monotonically — so the question this sweep answers is: which
 (stage-1 schedule, refine budget) pair maximizes throughput while the
 MERGED batch still converges 100%?
 
-Run on the TPU:  python scripts/sweep_refine.py [batch]
+Run on the GPU:  python scripts/sweep_refine.py [batch]
 One JSON line per config; pick the fastest row with converged_frac 1.0.
 """
 
@@ -26,7 +26,7 @@ from mmmpc_tpu.parallel.data_parallel import _with_stats
 from mmmpc_tpu.solver.refine import continue_mu
 
 # stage 1: (al, first, later, final); stage 2: (al_r, iters_r)
-# optionally a third element: refine_size (default 1024 = one lane tile)
+# optionally a third element: refine_size (default refine.REFINE_SIZE)
 CONFIGS = [
     # single-stage baselines for reference
     ((7, 20, 12, None), None),
@@ -57,6 +57,8 @@ CONFIGS_R2 = [
 
 
 def main():
+    from mmmpc_tpu.utils.compile_cache import enable_compile_cache
+    enable_compile_cache()
     batch = int(sys.argv[1]) if len(sys.argv) > 1 else 8192
     configs = (CONFIGS_R2 if len(sys.argv) > 2 and sys.argv[2] == "r2"
                else CONFIGS)

@@ -7,7 +7,7 @@ iteration cost, so the cheapest 100%-converging schedule may have moved.
 Total inner iterations multiply throughput directly — this sweep is the
 FLOP-count lever the measured-roofline leaves open.
 
-Run on the TPU:  python scripts/sweep_schedule.py [batch]
+Run on the GPU:  python scripts/sweep_schedule.py [batch]
 One JSON line per schedule; pick the fastest row with converged_frac 1.0
 and max_violation under the 1e-3 tolerance.
 """
@@ -38,6 +38,8 @@ SCHEDULES = [
 
 
 def main():
+    from mmmpc_tpu.utils.compile_cache import enable_compile_cache
+    enable_compile_cache()
     batch = int(sys.argv[1]) if len(sys.argv) > 1 else 8192
     import importlib.util
     spec = importlib.util.spec_from_file_location(

@@ -3,12 +3,44 @@
 import numpy as np
 import jax
 import jax.numpy as jnp
+import pytest
 
 from mmmpc_tpu.ops.assoc_riccati import (
     assoc_riccati_backward, assoc_riccati_backward_batched,
 )
-from tests.test_pallas_riccati import reference_backward
+from mmmpc_tpu.solver.linalg_small import chol_solve_unrolled
 
+
+def reference_backward(lx, lu, lxx, luu, lux, A, Bm, tg, tH, reg):
+    """Same recursion as solver/al_ilqr.py's bwd scan (batch-major)."""
+    nu = lu.shape[-1]
+    eye_u = jnp.eye(nu, dtype=lx.dtype)
+
+    def single(lx, lu, lxx, luu, lux, A, Bm, tg, tH):
+        def step(carry, inp):
+            Vx, Vxx = carry
+            lx_k, lu_k, lxx_k, luu_k, lux_k, A_k, B_k = inp
+            Qx = lx_k + A_k.T @ Vx
+            Qu = lu_k + B_k.T @ Vx
+            Qxx = lxx_k + A_k.T @ Vxx @ A_k
+            Quu = luu_k + B_k.T @ Vxx @ B_k
+            Qux = lux_k + B_k.T @ Vxx @ A_k
+            sol = chol_solve_unrolled(
+                Quu + reg * eye_u,
+                jnp.concatenate([Qu[:, None], Qux], axis=1))
+            kff = -sol[:, 0]
+            K = -sol[:, 1:]
+            Vx_n = Qx + K.T @ Quu @ kff + K.T @ Qu + Qux.T @ kff
+            Vxx_n = Qxx + K.T @ Quu @ K + K.T @ Qux + Qux.T @ K
+            Vxx_n = 0.5 * (Vxx_n + Vxx_n.T)
+            return (Vx_n, Vxx_n), (kff, K)
+
+        (_, _), (kffs, Ks) = jax.lax.scan(
+            step, (tg, tH),
+            jax.tree.map(lambda a: a[::-1], (lx, lu, lxx, luu, lux, A, Bm)))
+        return kffs[::-1], Ks[::-1]
+
+    return jax.vmap(single)(lx, lu, lxx, luu, lux, A, Bm, tg, tH)
 
 def make_problem(B, N, nx, nu, seed=0):
     rng = np.random.default_rng(seed)
@@ -67,7 +99,7 @@ def test_assoc_single_scenario_jits():
 def test_solver_switch_end_to_end():
     """SolverConfig.use_assoc_scan must drive the full AL-iLQR solve through
     the parallel-prefix backward pass and land on the sequential path's
-    solution (VERDICT r1 weak #2: the long-horizon capability is reachable
+    solution (the long-horizon capability is reachable
     from the production entry point, not just a module)."""
     from tests.test_solver import make_demo_ocp
     from mmmpc_tpu.solver import al_ilqr_solve
@@ -91,45 +123,16 @@ def test_solver_switch_end_to_end():
 
 
 def test_assoc_scan_auto_selection():
-    """The scan-vs-assoc choice is made from (batch, N) using the measured
-    v5e crossover (VERDICT r3 weak #5: a user flipping the switch on a fleet
-    workload must not silently eat a 10-40x regression)."""
-    import warnings
-
+    """The scan-vs-assoc choice: "auto" is the sequential scan (no crossover
+    measured on the GPU), True and False force a path, and a misspelt mode
+    is an error rather than a silent choice."""
     from mmmpc_tpu.solver.al_ilqr import resolve_assoc_scan
     from mmmpc_tpu.utils.configs import SolverConfig
 
     auto = SolverConfig()                      # default "auto"
     assert auto.use_assoc_scan == "auto"
-    assert resolve_assoc_scan(auto, batch=1, N=500)      # latency-bound
-    assert resolve_assoc_scan(auto, batch=8, N=100)      # edge of sweet spot
-    assert not resolve_assoc_scan(auto, batch=1024, N=500)   # fleet batch
-    assert not resolve_assoc_scan(auto, batch=1, N=20)       # short horizon
-    assert not resolve_assoc_scan(SolverConfig(use_assoc_scan=False), 1, 500)
-
-    forced = SolverConfig(use_assoc_scan=True)
-    with warnings.catch_warnings(record=True) as w:
-        warnings.simplefilter("always")
-        assert resolve_assoc_scan(forced, batch=1024, N=20)  # honored...
-        assert any("assoc" in str(x.message) for x in w)     # ...but warned
-    with warnings.catch_warnings(record=True) as w:
-        warnings.simplefilter("always")
-        assert resolve_assoc_scan(forced, batch=1, N=500)
-        assert not w                                         # sweet spot
-
-
-def test_batched_auto_never_picks_assoc_for_fleet():
-    """End-to-end: the batched entry point resolves 'auto' with the real
-    batch size — a fleet-shaped batch runs the sequential scan even though
-    the per-scenario core's default hint would allow assoc."""
-    from tests.test_solver import make_demo_ocp
-    from mmmpc_tpu.solver.batched import al_ilqr_solve_batched
-    from mmmpc_tpu.utils.configs import SolverConfig
-
-    N = 12
-    ocp = make_demo_ocp(N=N)
-    params = {"X_ref": jnp.zeros((N + 1, 2)), "U_ref": jnp.zeros((N, 1))}
-    x0_b = jnp.zeros((4, 2))
-    res = al_ilqr_solve_batched(ocp, x0_b, jnp.zeros((4, N, 1)), params,
-                                SolverConfig(al_iters=4, ilqr_iters=12))
-    assert bool(np.asarray(res.converged).all())
+    assert not resolve_assoc_scan(auto)
+    assert not resolve_assoc_scan(SolverConfig(use_assoc_scan=False))
+    assert resolve_assoc_scan(SolverConfig(use_assoc_scan=True))
+    with pytest.raises(ValueError):
+        resolve_assoc_scan(SolverConfig(use_assoc_scan="Auto"))

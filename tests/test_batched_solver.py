@@ -1,8 +1,7 @@
 """Natively-batched solver equivalence vs vmap(al_ilqr_solve).
 
-Runs the full batched implementation (including the Pallas Riccati kernel in
-interpreter mode) on the CPU mesh and checks it lands on the same solutions
-as the per-scenario path.
+Runs the lanes path (the fused forward kernel in interpreter mode) on the
+CPU and checks it lands on the same solutions as the per-scenario path.
 """
 
 import numpy as np
@@ -10,12 +9,11 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-import mmmpc_tpu.ops.riccati as ric
-import mmmpc_tpu.solver.batched as batched_mod
 from mmmpc_tpu.controllers import MPCWholeBody
 from mmmpc_tpu.models.obstacles import Obstacles
 from mmmpc_tpu.models.robots import MobileManipulator
 from mmmpc_tpu.solver import al_ilqr_solve, al_ilqr_solve_batched
+from mmmpc_tpu.solver.batched import solve_batched_lanes
 from mmmpc_tpu.utils.configs import SolverConfig
 
 
@@ -26,7 +24,7 @@ def problem():
     mpc = MPCWholeBody(MobileManipulator(0.1), [Obstacles(1.0, 0.2, 0.3)],
                        [], N=N, solver_config=cfg)
     rng = np.random.default_rng(4)
-    B = 1024
+    B = 64
     x0 = np.zeros(9)
     x0[6:] = [-np.pi / 4, -np.pi / 2, np.pi / 2]
     x0_b = jnp.asarray(
@@ -40,8 +38,11 @@ def problem():
     return mpc, cfg, x0_b, U0_b, params
 
 
-def test_batched_matches_vmap(problem, monkeypatch):
-    mpc, cfg, x0_b, U0_b, params = problem
+def test_batched_matches_vmap(problem):
+    mpc, cfg = problem[:2]
+    # float32 on both sides: the kernel computes in float32
+    x0_b, U0_b, params = jax.tree.map(
+        lambda a: jnp.asarray(a, jnp.float32), problem[2:])
 
     # reference: per-scenario vmap path (on a small slice for speed)
     S = 8
@@ -49,14 +50,9 @@ def test_batched_matches_vmap(problem, monkeypatch):
         lambda x0, U0: al_ilqr_solve(mpc.ocp, x0, U0, params, cfg))(
             x0_b[:S], U0_b[:S])
 
-    # force the batched+kernel path on CPU via the interpreter (the
-    # batch-major Riccati-kernel path; the batch-minor lanes path has its
-    # own parity tests in test_fwd_lanes.py)
-    import dataclasses
-    cfg = dataclasses.replace(cfg, use_pallas_linesearch=False)
-    monkeypatch.setattr(ric, "INTERPRET", True)
-    monkeypatch.setattr(batched_mod.jax, "default_backend", lambda: "tpu")
-    res_b = al_ilqr_solve_batched(mpc.ocp, x0_b, U0_b, params, cfg)
+    # the lanes path on CPU via the interpreter
+    res_b = solve_batched_lanes(mpc.ocp, x0_b, U0_b, params, cfg,
+                                interpret=True)
 
     np.testing.assert_allclose(np.asarray(res_b.U[:S]),
                                np.asarray(res_ref.U), atol=5e-5)
@@ -68,7 +64,7 @@ def test_batched_matches_vmap(problem, monkeypatch):
 
 def test_batched_fallback_is_vmap(problem):
     mpc, cfg, x0_b, U0_b, params = problem
-    # batch not a multiple of 1024 -> vmap fallback, same results
+    # on the CPU the batched entry point is the vmap path: same results
     S = 6
     res_fb = al_ilqr_solve_batched(mpc.ocp, x0_b[:S], U0_b[:S], params, cfg)
     res_ref = jax.vmap(

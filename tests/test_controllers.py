@@ -1,4 +1,4 @@
-"""Controller-level tests: each reference controller's TPU re-design solves
+"""Controller-level tests: each reference controller's JAX re-design solves
 its formulation correctly (vs the scipy interior-point oracle) and honors the
 reference's protocol quirks (warm starts, weight mutation, clamping)."""
 
@@ -120,7 +120,7 @@ def wb_robot():
 
 
 def test_wholebody_qref_matches_oracle_smooth(wb_robot):
-    """Whole-body qref with no active state constraint: the TPU solver must
+    """Whole-body qref with no active state constraint: the JAX solver must
     match the independent L-BFGS-B oracle on the same objective exactly.
     (scipy trust-constr under-converges on this problem class — see
     test_wholebody_qref_dominates_oracle_constrained — so the smooth-regime

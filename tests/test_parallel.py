@@ -89,29 +89,20 @@ def test_sharded_with_batch_impl(small_mpc):
                                float(stats_b.mean_cost), rtol=1e-10)
 
 
-def test_sharded_lanes_kernel_path(monkeypatch):
-    """The EXACT multi-chip bench configuration — shard_map over the mesh
-    with the batch-minor lanes solver (both Pallas kernels) per shard — must
-    execute and match the vmap fallback (VERDICT r1 weak #3).  Kernels run
-    in pallas interpreter mode; per-shard batch is one lane tile (1024)."""
-    import dataclasses
-
-    import mmmpc_tpu.ops.riccati as ric
-    import mmmpc_tpu.ops.wholebody_bwd as bwd_mod
-    import mmmpc_tpu.ops.wholebody_fwd as fwd_mod
-
-    monkeypatch.setattr(ric, "INTERPRET", True)
-    monkeypatch.setattr(bwd_mod, "INTERPRET", True)
-    monkeypatch.setattr(fwd_mod, "INTERPRET", True)
+def test_sharded_lanes_kernel_path():
+    """The multi-card bench configuration — shard_map over the mesh with the
+    batch-minor lanes solver (fused forward kernel) per shard — must execute
+    and match the vmap path.  The kernel runs in Pallas interpreter mode."""
+    from mmmpc_tpu.solver.batched import solve_batched_lanes
 
     N = 5
     cfg = SolverConfig(al_iters=1, ilqr_iters=2, n_alpha=2, alpha_decay=0.4,
-                       cost_scale=1e5, force_kernel=True)
+                       cost_scale=1e5)
     robot = MobileManipulator(0.1)
     mpc = MPCWholeBody(robot, [Obstacles(1.0, 0.3, 0.3)], [], N=N,
                        solver_config=cfg)
     n_dev = len(jax.devices())
-    B = 1024 * n_dev
+    B = 32 * n_dev
     rng = np.random.default_rng(5)
     x0 = np.zeros(9)
     x0[6:] = [-np.pi / 4, -np.pi / 2, np.pi / 2]
@@ -126,19 +117,17 @@ def test_sharded_lanes_kernel_path(monkeypatch):
     params = jax.tree.map(lambda a: jnp.asarray(a, f32), params)
 
     mesh = make_mesh()
-    run_lanes = sharded_solve_fn(mpc.solve_fn(), mesh,
-                                 batch_impl=mpc.batch_solve_fn())
+    run_lanes = sharded_solve_fn(
+        mpc.solve_fn(), mesh,
+        batch_impl=lambda x, u, p: solve_batched_lanes(
+            mpc.ocp, x, u, p, cfg, interpret=True))
     res, stats = run_lanes(x0_b, U0_b, params)
     assert res.U.shape == (B, N, 5)
     assert float(stats.n_solved) == B
 
-    # vmap fallback on the same problem (kernel disabled) as the oracle
-    cfg_vmap = dataclasses.replace(cfg, use_pallas_riccati=False,
-                                   force_kernel=False)
-    mpc_vmap = MPCWholeBody(robot, [Obstacles(1.0, 0.3, 0.3)], [], N=N,
-                            solver_config=cfg_vmap)
+    # the vmap path on the same problem as the oracle
     S = 96
-    run_vmap = jax.jit(batched_solve_fn(mpc_vmap.solve_fn()))
+    run_vmap = jax.jit(batched_solve_fn(mpc.solve_fn()))
     res_ref, _ = run_vmap(x0_b[:S], U0_b[:S], params)
     np.testing.assert_allclose(np.asarray(res.U[:S]),
                                np.asarray(res_ref.U), atol=5e-4)
@@ -150,7 +139,7 @@ def test_sharded_task_loop_matches_single_device(small_mpc):
     """The sharded fleet task engine (parallel/data_parallel.py::
     sharded_task_loop_fn) must produce exactly the single-device task log —
     robots are embarrassingly parallel, so sharding may not perturb the
-    phase FSM, IK, or warm-start carry (VERDICT r4 weak #3)."""
+    phase FSM, IK, or warm-start carry."""
     from mmmpc_tpu.parallel import sharded_task_loop_fn
     from mmmpc_tpu.sim.batch_task_engine import make_batch_task_loop
     from mmmpc_tpu.utils.configs import make_scenario

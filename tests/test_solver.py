@@ -85,7 +85,7 @@ def test_lqr_exactness():
 
 
 def test_demo_mpc_matches_scipy_oracle():
-    """Velocity-limited point-to-point move: the TPU solver and scipy
+    """Velocity-limited point-to-point move: the JAX solver and scipy
     trust-constr must find the same control sequence."""
     N = 10
     ocp = make_demo_ocp(N=N)
@@ -249,7 +249,7 @@ def test_lam0_zeros_equals_default():
 def test_dual_warm_start_stabilizes_rt_budget():
     """Receding-horizon dual carry (shift_multipliers with decay) must reach
     a tighter steady state than primal-only warm starts at an RT iteration
-    budget, and must not wind up (VERDICT r1 weak #1: fleet RT convergence).
+    budget, and must not wind up (fleet RT convergence).
     """
     from mmmpc_tpu.solver import shift_multipliers
 
@@ -291,7 +291,7 @@ def test_exact_hessian_psd_guard():
     with a deliberately nonconvex cost: cos(x0) has an indefinite Hessian
     around the start state, which would feed sqrt(<0) = NaN into the unrolled
     Cholesky without the eigenvalue clamp in stage_derivs_exact /
-    terminal_derivs (VERDICT r1 weak #8)."""
+    terminal_derivs."""
     N = 12
 
     def stage(x, u, k, p):

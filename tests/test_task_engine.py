@@ -131,7 +131,7 @@ def _fleet_run(sc, cfg, mpc, x0, n_ticks, **loop_kw):
 
 @pytest.mark.slow
 def test_rotate_stall_host_parity_and_recovery():
-    """Pins the fleet-bench straggler claim (VERDICT r3 weak #3 / next #5):
+    """Pins the fleet-bench straggler claim:
 
     (a) a state that stalls the fleet engine's rotate phase stalls the host
         Interface identically from the same state — the ~10% fleet
@@ -178,14 +178,13 @@ def test_rotate_stall_host_parity_and_recovery():
 
 @pytest.mark.slow
 def test_host_fleet_completion_distribution():
-    """Distribution-level host parity (VERDICT r4 weak #4): jittered
+    """Distribution-level host parity: jittered
     scenario-1 tasks through the HOST Interface loop, same jitter
     seeds/order as the fleet bench, completion compared against the
     engine's measured rate.
 
-    The full K=64 measurement lives in BASELINE.md (host 93.75% vs engine
-    89.55% @ 400 ticks, medians 196.5 vs 198, stall modes rotate +
-    manipulate in both — scripts/host_fleet_parity.py).  This slow test
+    The full K=64 measurement is scripts/host_fleet_parity.py (stall modes
+    rotate + manipulate on both sides, BASELINE.md).  This slow test
     replays the FIRST K=8 of those robots: at the measured p ~= 0.9,
     P(X <= 4 | p=0.9) < 1%, so >= 5/8 completions is a sound guard that
     the host loop has not drifted from the engine's completion regime.
